@@ -1,0 +1,464 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (simd_radix_sort_tpu_torch) on one card.
+
+    python3 chip_smoke.py [--n ROWS] [--reps R] [--seed S] [--out FILE]
+
+Phases, each raising on failure:
+  1. device: the card's name and power limit; build the CUDA kernels.
+  2. kernels: each of K1-K4 against its plain PyTorch version on the card,
+     exactly (all are integer functions), at the main path's shapes and at
+     ragged, misaligned and edge cases.
+  3. main path: `sort(...)` with method="auto" at --n rows (default 10^8),
+     data made from --seed with the port's utils/data.py; each case checks
+     the engine it resolves to, its output on the device and that the
+     expected kernels were launched (counts reset just before, read just
+     after).
+  4. times: CUDA events, median of --reps after warm-up, for each kernel
+     (kernel, plain version, one library call, bound) and each main-path
+     case (rows/s and fraction of the roofline model); one further call of
+     each under torch.profiler gives device time by kernel and the
+     device's idle share of the call.
+
+Prints one {"kernels": [...]} line, then as the last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Exits non-zero, with no result, when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+SOURCE = "simd_radix_sort_tpu_torch/csrc/hist_kernels.cu"
+TPU_KERNELS = {
+    "histogram": "simd_radix_sort_tpu/ops/pallas_hist.py:39",
+    "minmax_hist16": "simd_radix_sort_tpu/ops/pallas_hist.py:90",
+    "tiny_sort16": "simd_radix_sort_tpu/ops/pallas_hist.py:177",
+    "fill_runs": "simd_radix_sort_tpu/ops/pallas_hist.py:325",
+}
+# the CUDA functions each wrapper launches, as the profiler names them
+KERNEL_FUNCTIONS = {
+    "histogram": ("histogram_kernel",),
+    "minmax_hist16": ("minmax_hist16_kernel",),
+    "tiny_sort16": ("minmax_hist16_kernel", "fill16_kernel"),
+    "fill_runs": ("fill_runs_kernel",),
+}
+# non-tensor-core int32/float32 peak of an H100 SXM (NVIDIA data sheet);
+# every kernel here does a few integer operations per byte, far below it
+PEAK_OPS = 67e12
+MIX = 0x9E3779B97F4A7C15  # odd multiplier of bench.py's pair fingerprint
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=100_000_000)
+    ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--out", default=None,
+                    help="also write every measurement to this JSON file")
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+
+    import numpy as np
+
+    import simd_radix_sort_tpu_torch as srs
+    from simd_radix_sort_tpu_torch import methods
+    from simd_radix_sort_tpu_torch.models import roofline
+    from simd_radix_sort_tpu_torch.ops import _build, cuda_hist as ch
+    from simd_radix_sort_tpu_torch.utils import data as D, interop, transforms
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    chip = roofline.chip_for_name(kind)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"roofline {chip.name} {chip.hbm_gbps} GB/s")
+
+    # ---- phase 1: build ---------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"phase 1: kernels built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s ({_build.library_path().name})")
+    nvcc_log = _build.library_path().with_suffix(".log")
+    if nvcc_log.exists():
+        log(nvcc_log.read_text().strip())
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    n = args.n
+    ragged = 1_000_003
+
+    def randint(lo, hi, size):
+        return torch.randint(lo, hi, (size,), generator=gen, device=dev,
+                             dtype=torch.int64)
+
+    def as_width(v, width):
+        """int64 values -> carrier of `width` bytes holding their low
+        bits."""
+        bits = v & ((1 << (8 * width)) - 1)
+        half = 1 << (8 * width - 1)
+        return torch.where(bits >= half, bits - 2 * half, bits).to(
+            {1: torch.int8, 2: torch.int16, 4: torch.int32}[width])
+
+    def diff(a, b) -> int:
+        """max |a - b| over the integer results, as int64."""
+        a = a.to(torch.int64) if a.dim() else a.reshape(1).to(torch.int64)
+        b = b.to(torch.int64) if b.dim() else b.reshape(1).to(torch.int64)
+        if a.shape != b.shape:
+            raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+        return int((a - b).abs().max().item()) if a.numel() else 0
+
+    def signed(t):
+        return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+
+    errs = {name: 0 for name in TPU_KERNELS}
+    checks = {name: 0 for name in TPU_KERNELS}
+
+    def hold(name, got, want, what):
+        e = max(diff(g, w) for g, w in zip(got, want))
+        if e:
+            raise AssertionError(f"{name} {what}: kernel differs from its "
+                                 f"plain version by up to {e}")
+        errs[name] = max(errs[name], e)
+        checks[name] += 1
+
+    # ---- phase 2: kernels against their plain versions ---------------------
+    t0 = time.perf_counter()
+    for width in (1, 2, 4):
+        for k in (16, 256, 1024):
+            for size in (n, ragged):
+                base = int(randint(0, 1 << (8 * width), 1).item())
+                v = as_width(base + randint(-8, k + 8, size + 1), width)
+                # the ragged case reads from an offset (misaligned) view
+                x = v[1:] if size == ragged else v[:size]
+                hold("histogram", (ch.histogram(x, k, base),),
+                     (ch.histogram_plain(x, k, base),),
+                     f"w={width} k={k} n={size}")
+    # (lo, carrier bytes, flip, span): windows straddling 2^31 and 2^32, a
+    # 2-byte carrier ordered through its sign flip, and one wide range
+    # (out of contract: the stats stay exact, the output is defined)
+    for lo, width, flip, span in ((0, 4, 0, 16), (2**31 - 5, 4, 0, 16),
+                                  (2**32 - 16, 4, 0, 16),
+                                  (0x7FF9, 2, 0x8000, 16),
+                                  (0, 4, 0x80000000, 1 << 32)):
+        mask = (1 << (8 * width)) - 1
+        for size in (n, ragged):
+            u = (lo + randint(0, span, size)) & mask
+            v = as_width(u ^ flip, width)
+            hold("minmax_hist16", ch.minmax_hist16(v, flip),
+                 ch.minmax_hist16_plain(v, flip), f"lo={lo} n={size}")
+            got = ch.tiny_sort16(v, flip)
+            hold("tiny_sort16", got, ch.tiny_sort16_plain(v, flip),
+                 f"lo={lo} n={size}")
+            if span <= 16:  # in contract: the output is the sorted input
+                s = (signed(got[0]).to(torch.int64) & mask) ^ flip
+                if not torch.equal(s, torch.sort(u).values):
+                    raise AssertionError(f"tiny_sort16 lo={lo}: not sorted")
+    fill_cases = [(n, 256, torch.int8, 0x80), (n, 1024, torch.int32, 77),
+                  (ragged, 1024, torch.int16, 0x7FF0)]
+    for size, k, dtype, base in fill_cases:
+        hist = torch.bincount(randint(0, k, size), minlength=k).to(
+            torch.int32)
+        hold("fill_runs", (ch.fill_runs(hist, size, base, dtype),),
+             (ch.fill_runs_plain(hist, size, base, dtype),),
+             f"k={k} n={size}")
+    for hist_list, dtype in (([3] * 512, torch.int32),
+                             ([0, 5, 0, 0, 2, 0], torch.uint8),
+                             ([0] * 100 + [n] + [0] * 100, torch.int16)):
+        hist = torch.tensor(hist_list, dtype=torch.int32, device=dev)
+        size = int(sum(hist_list))
+        hold("fill_runs", (ch.fill_runs(hist, size, 3, dtype),),
+             (ch.fill_runs_plain(hist, size, 3, dtype),),
+             f"skewed/empty k={len(hist_list)}")
+    torch.cuda.synchronize()
+    log(f"phase 2: kernels equal their plain versions "
+        f"({json.dumps(checks)} comparisons) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 3: main path -------------------------------------------------
+    def time_ms(fn, reps=args.reps, warmup=2):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        return statistics.median(times)
+
+    def device_profile(fn):
+        """One call under torch.profiler after a warm-up: its wall time
+        (CUDA events, profiler on) and the device time of every kernel,
+        memset or copy it issued, by name."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+        per = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                per[ev.name] = (per.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us() / 1e3)
+        return s.elapsed_time(e), per
+
+    def count_launches(fn):
+        ch.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(ch.LAUNCHES)
+
+    def wrap64(x: int) -> int:
+        return (int(x) + 2**63) % 2**64 - 2**63
+
+    def xor_reduce(t) -> int:
+        while t.numel() > 1:
+            if t.numel() % 2:
+                t = torch.cat([t, t.new_zeros(1)])
+            h = t.numel() // 2
+            t = t[:h] ^ t[h:]
+        return int(t.item())
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed)
+    cases = []
+    # (a) u64 key + u64 payload: the comparison engine
+    keys = D.make_keys(n, np.uint64, D.Distribution.UNIFORM, args.seed)
+    (pay,) = D.make_payloads(keys, [np.uint64])
+    cases.append(("a u64+u64 Uniform", keys, (pay,), True, "xla", 16))
+    # (b) uint8 keys only: 256-bucket counting
+    cases.append(("b uint8 Uniform", D.make_keys(
+        n, np.uint8, D.Distribution.UNIFORM, args.seed), (), True, "count",
+        1))
+    # (c) int32 keys only, tiny range
+    for dist in (D.Distribution.ZERO, D.Distribution.ZERO_ONE):
+        cases.append((f"c int32 {dist.value}", D.make_keys(
+            n, np.int32, dist, args.seed), (), True, "count", 4))
+    # (d) int32 keys only in [-500, 500): the 1024-bucket branch
+    cases.append(("d int32 [-500,500)",
+                  rng.integers(-500, 500, n, dtype=np.int32), (), True,
+                  "count", 4))
+    # (e) int16 Gaussian, descending
+    cases.append(("e int16 Gaussian desc", D.make_keys(
+        n, np.int16, D.Distribution.GAUSSIAN, args.seed), (), False,
+        "count", 2))
+    log(f"phase 3: data made in {time.perf_counter() - t0:.1f} s")
+
+    results = []
+    for label, keys, pays, asc, engine, row_bytes in cases:
+        m = methods.resolve("auto", keys.dtype, [p.dtype for p in pays],
+                            keys.shape[0])
+        if m.name != engine:
+            raise AssertionError(f"{label}: auto resolved to {m.name}, "
+                                 f"expected {engine}")
+        kd = interop.from_numpy(keys, dev)
+        pd = tuple(interop.from_numpy(p, dev) for p in pays)
+
+        def run(kd=kd, pd=pd, asc=asc):
+            return srs.sort(kd, *pd, ascending=asc)
+
+        out, launches = count_launches(run)
+        if engine == "xla":
+            ko, po = (signed(t) for t in out)
+            c = ko ^ (-(2**63))
+            if not bool((c[1:] >= c[:-1]).all()):
+                raise AssertionError(f"{label}: not sorted")
+            with np.errstate(over="ignore"):
+                pair_in = (keys * np.uint64(MIX)) ^ pay
+                want = (wrap64(keys.sum(dtype=np.uint64)),
+                        wrap64(np.bitwise_xor.reduce(keys)),
+                        wrap64(pair_in.sum(dtype=np.uint64)),
+                        wrap64(np.bitwise_xor.reduce(pair_in)))
+            pair = (ko * wrap64(MIX)) ^ po
+            got = (int(ko.sum().item()), xor_reduce(ko),
+                   int(pair.sum().item()), xor_reduce(pair))
+            if got != want:
+                raise AssertionError(f"{label}: checksums {got} != {want}")
+            expect = []
+        else:
+            ref = srs.sort(kd, ascending=asc, method="xla")
+            if not torch.equal(signed(out), signed(ref)):
+                raise AssertionError(f"{label}: differs from the "
+                                     "comparison sort of its input")
+            c = srs.to_sortable(out, asc)
+            if not bool((c[1:] >= c[:-1]).all()):
+                raise AssertionError(f"{label}: not sorted")
+            u = transforms.to_sortable_np(keys)
+            span = int(u.max()) - int(u.min())
+            if keys.dtype.itemsize == 1:
+                expect = ["histogram", "fill_runs"]
+            elif span < 16:
+                expect = ["minmax_hist16", "tiny_sort16"]
+            elif span < 1024:
+                expect = ["minmax_hist16", "tiny_sort16", "histogram",
+                          "fill_runs"]
+            else:
+                expect = ["minmax_hist16", "tiny_sort16"]
+        missing = [k for k in expect if launches[k] < 1]
+        if missing:
+            raise AssertionError(f"{label}: kernels {missing} not launched "
+                                 f"({launches})")
+        ms = time_ms(run, reps=max(5, args.reps // 2))
+        if engine == "xla":
+            roof = roofline.radix_sort_roofline_rows_per_s(
+                row_bytes=16, key_bits=64, chip=chip)
+            model = "lsd_radix_8bit(16 B rows)"
+        else:
+            roof = roofline.stream_roofline_rows_per_s(row_bytes, 1.0,
+                                                       chip=chip)
+            model = f"one read + one write of {row_bytes} B rows"
+        rows_s = n / (ms / 1e3)
+        wall, per = device_profile(run)
+        busy = sum(per.values())
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+        res = {"case": label, "engine": m.name, "n": n, "ms": ms,
+               "rows_per_s": rows_s, "roofline_model": model,
+               "roofline_rows_per_s": roof, "roofline_frac": rows_s / roof,
+               "launches": {k: v for k, v in launches.items() if v},
+               "expected_kernels": expect,
+               # idle share against the unprofiled median: the profiler
+               # slows the host, not the device
+               "trace": {"wall_ms_profiled": wall, "device_busy_ms": busy,
+                         "idle_share": 1 - busy / ms if per else None,
+                         "top": [[k[:90], v] for k, v in top]}}
+        results.append(res)
+        log(f"phase 3: {json.dumps(res)}")
+        del kd, pd, out
+    main_launches = {name: sum(r["launches"].get(name, 0) for r in results)
+                     for name in TPU_KERNELS}
+
+    # ---- phase 4: kernel times at the main path's shapes --------------------
+    del cases
+    u8 = as_width(randint(0, 256, n), 1)
+    i32 = as_width(randint(0, 2, n), 4)
+    i32w = as_width(randint(-500, 500, n), 4)
+    h256 = ch.histogram(u8, 256, 0x80)
+    h1024 = ch.histogram(i32w, 1024, (-500) & 0xFFFFFFFF)
+    flip32 = 0x80000000
+
+    def bound(nbytes, ops):
+        t_bytes = roofline.bound_ms(nbytes, chip)
+        t_ops = ops / PEAK_OPS * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+
+    shapes = [
+        ("histogram", "uint8 n=%d k=256 (case b)" % n,
+         lambda: ch.histogram(u8, 256, 0x80),
+         lambda: ch.histogram_plain(u8, 256, 0x80),
+         lambda: torch.bincount(u8.view(torch.uint8), minlength=256),
+         n + 256 * 4, n),
+        ("histogram", "int32 n=%d k=1024 (case d)" % n,
+         lambda: ch.histogram(i32w, 1024, -500),
+         lambda: ch.histogram_plain(i32w, 1024, (-500) & 0xFFFFFFFF),
+         lambda: torch.bincount(i32w + 500, minlength=1024),
+         4 * n + 1024 * 4, n),
+        ("minmax_hist16", "int32 n=%d (cases c-e)" % n,
+         lambda: ch.minmax_hist16(i32, flip32),
+         lambda: ch.minmax_hist16_plain(i32, flip32),
+         lambda: (torch.aminmax(i32), torch.bincount(i32 & 15,
+                                                     minlength=16)),
+         4 * n + 18 * 4, n),
+        ("tiny_sort16", "int32 ZeroOne n=%d (case c)" % n,
+         lambda: ch.tiny_sort16(i32, flip32),
+         lambda: ch.tiny_sort16_plain(i32, flip32),
+         lambda: torch.sort(i32).values,
+         8 * n, 2 * n),
+        ("fill_runs", "int8 n=%d k=256 (case b)" % n,
+         lambda: ch.fill_runs(h256, n, 0x80, torch.int8),
+         lambda: ch.fill_runs_plain(h256, n, 0x80, torch.int8),
+         lambda: torch.repeat_interleave(
+             torch.arange(256, device=dev).to(torch.int8),
+             h256.to(torch.int64), output_size=n),
+         n + 257 * 8, n),
+        ("fill_runs", "int32 n=%d k=1024 (case d)" % n,
+         lambda: ch.fill_runs(h1024, n, -500, torch.int32),
+         lambda: ch.fill_runs_plain(h1024, n, (-500) & 0xFFFFFFFF,
+                                    torch.int32),
+         lambda: torch.repeat_interleave(
+             torch.arange(-500, 524, device=dev, dtype=torch.int32),
+             h1024.to(torch.int64), output_size=n),
+         4 * n + 1025 * 8, n),
+    ]
+    timings = []
+    for name, shape, kern, plain, lib, nbytes, ops in shapes:
+        # plain, kernel, kernel, plain: the two versions alternate
+        p1, k1 = time_ms(plain), time_ms(kern)
+        k2, p2 = time_ms(kern), time_ms(plain)
+        lib_ms = time_ms(lib)
+        b_ms, b_by = bound(nbytes, ops)
+        _, per = device_profile(kern)
+        dev_ms = sum(v for k, v in per.items()
+                     if any(f in k for f in KERNEL_FUNCTIONS[name]))
+        t = {"name": name, "shape": shape, "ms": min(k1, k2),
+             "device_ms": dev_ms if per else None,
+             "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
+             "plain_ms_runs": [p1, p2], "library_ms": lib_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+        timings.append(t)
+        log(f"phase 4: {json.dumps(t)}")
+
+    kernels = []
+    for name, replaces in TPU_KERNELS.items():
+        t = next(x for x in timings if x["name"] == name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "tpu_kernel": replaces,
+            "launches": main_launches[name], "equal": errs[name] == 0,
+            "comparisons": checks[name], "max_abs_err": errs[name],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "shape": t["shape"]})
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{idle}")
+
+    report = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "n": n, "seed": args.seed,
+              "kernels": kernels, "kernel_timings": timings,
+              "main_path": results,
+              "seconds": time.perf_counter() - t_start}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=1)
+    log(f"total {report['seconds']:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

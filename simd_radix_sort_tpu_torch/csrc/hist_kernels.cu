@@ -1,0 +1,328 @@
+// Counting-sort kernels for NVIDIA Hopper (sm_90a): the CUDA C++ port of the
+// Pallas kernels in simd_radix_sort_tpu/ops/pallas_hist.py.
+//
+// Plain C entry points, built with nvcc into a shared library and bound with
+// ctypes (simd_radix_sort_tpu_torch/ops/_build.py).  The Python wrappers, with
+// the plain PyTorch version of each kernel beside it, are in
+// simd_radix_sort_tpu_torch/ops/cuda_hist.py.  Every entry launches on the
+// caller's stream, does not synchronise, allocates nothing and returns
+// cudaGetLastError().
+//
+// All four kernels are bound by device-memory bytes: each reads or writes
+// every element once and does a handful of integer operations on it.  The
+// designs therefore aim at one streaming pass with 16-byte accesses per
+// thread, and keep every per-element counter in registers or shared memory
+// so that only a few atomics per block reach device memory.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 8;  // 8 x 256 threads fill an SM's 2048 slots
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Blocks for a grid-stride pass over n elements of `width` bytes, each thread
+// taking 16 bytes per step: enough to fill every SM, no more.
+int grid_for(long long n, int width) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long per = 16 / width;
+  const long long vecs = (n + per - 1) / per;
+  long long blocks = (vecs + kThreads - 1) / kThreads;
+  const long long cap = (long long)(sms > 0 ? sms : 1) * kBlocksPerSm;
+  if (blocks > cap) blocks = cap;
+  return blocks < 1 ? 1 : (int)blocks;
+}
+
+// Calls f(x[i]) for every i < n in a grid-stride loop that loads 16 bytes a
+// thread where the pointer allows it; the ragged tail goes element-wise.
+template <typename T, typename F>
+__device__ __forceinline__ void for_each(const T* __restrict__ x, long long n,
+                                         F&& f) {
+  constexpr int kPer = 16 / sizeof(T);
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long head = 0;
+  if (aligned16(x)) {
+    const long long nvec = n / kPer;
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    for (long long v = tid; v < nvec; v += stride) {
+      const uint4 w = xv[v];
+      T e[kPer];
+      memcpy(e, &w, sizeof(w));
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) f(e[j]);
+    }
+    head = nvec * kPer;
+  }
+  for (long long i = head + tid; i < n; i += stride) f(x[i]);
+}
+
+// #{j < k : cum[j + 1] <= i}, clamped to k - 1: the bucket whose run holds
+// output position i.  cum[0..k] is non-decreasing.
+__device__ __forceinline__ int bucket_of(const long long* cum, int k,
+                                         long long i) {
+  int lo = 0, hi = k;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (cum[mid + 1] <= i) lo = mid + 1; else hi = mid;
+  }
+  return lo < k ? lo : k - 1;
+}
+
+// out[i] = (T)(base + bucket_of(i)) ^ flip for every i < n, 16 bytes a
+// thread.  Inside one vector the bucket only moves forward, so a single
+// search per vector plus a short walk over the run boundaries it crosses
+// serves all of its elements.
+template <typename T>
+__device__ __forceinline__ void paint_runs(const long long* cum, int k,
+                                           long long n, unsigned base, T flip,
+                                           T* __restrict__ out) {
+  constexpr int kPer = 16 / sizeof(T);
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long head = 0;
+  if (aligned16(out)) {
+    const long long nvec = n / kPer;
+    uint4* ov = reinterpret_cast<uint4*>(out);
+    for (long long v = tid; v < nvec; v += stride) {
+      const long long i0 = v * kPer;
+      int b = bucket_of(cum, k, i0);
+      T e[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        while (b < k - 1 && cum[b + 1] <= i0 + j) ++b;
+        e[j] = (T)((T)(base + (unsigned)b) ^ flip);
+      }
+      uint4 w;
+      memcpy(&w, e, sizeof(w));
+      ov[v] = w;
+    }
+    head = nvec * kPer;
+  }
+  for (long long i = head + tid; i < n; i += stride)
+    out[i] = (T)((T)(base + (unsigned)bucket_of(cum, k, i)) ^ flip);
+}
+
+// K1.  Replaces pallas_hist.py:_hist_kernel / histogram (a (k, 128)
+// lane-parallel accumulator carried across a sequential grid) and, for
+// k = 256 and 1024, counting.py:mxu_histogram (a one-hot matmul on the MXU).
+// out[b] += #{i : (T)(x[i] - base) == b} for b < k; other values drop out.
+// Bound: reading n * sizeof(T) bytes.  Each block counts into k int32
+// counters in shared memory (k <= 1024, 4 KB) and adds them to `out` once.
+template <typename T>
+__global__ void histogram_kernel(const T* __restrict__ x, long long n, T base,
+                                 int k, int* __restrict__ out) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  int* counts = reinterpret_cast<int*>(smem);
+  for (int b = threadIdx.x; b < k; b += blockDim.x) counts[b] = 0;
+  __syncthreads();
+  for_each(x, n, [&](T v) {
+    const T off = (T)(v - base);
+    if ((unsigned)off < (unsigned)k) atomicAdd(&counts[off], 1);
+  });
+  __syncthreads();
+  for (int b = threadIdx.x; b < k; b += blockDim.x)
+    if (counts[b]) atomicAdd(&out[b], counts[b]);
+}
+
+// K2.  Replaces pallas_hist.py:_minmax_hist16_kernel / minmax_hist16.
+// stats[0] = min u, stats[1] = max u, stats[2 + b] = #{u & 15 == b}, where
+// u = (T)(x ^ flip) zero-extended to 32 bits; stats must hold
+// (0xFFFFFFFF, 0, 0, ...) on entry.  Bound: reading n * sizeof(T) bytes.
+// Min, max and the 16 counts live in registers (the residue test is
+// unrolled, so no counter array spills), are reduced with warp shuffles and
+// shared memory, and reach device memory as 18 atomics per block.  CUDA has
+// unsigned atomics, so the TPU's sign flip into int32 is not needed.
+template <typename T>
+__global__ void minmax_hist16_kernel(const T* __restrict__ x, long long n,
+                                     T flip, unsigned* __restrict__ stats) {
+  __shared__ unsigned block_stats[18];
+  if (threadIdx.x < 18) block_stats[threadIdx.x] = threadIdx.x ? 0u : ~0u;
+  __syncthreads();
+  unsigned mn = ~0u, mx = 0u;
+  unsigned cnt[16];
+#pragma unroll
+  for (int b = 0; b < 16; ++b) cnt[b] = 0;
+  for_each(x, n, [&](T v) {
+    const unsigned u = (T)(v ^ flip);
+    mn = min(mn, u);
+    mx = max(mx, u);
+    const unsigned low = u & 15u;
+#pragma unroll
+    for (int b = 0; b < 16; ++b) cnt[b] += (low == (unsigned)b);
+  });
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      cnt[b] += __shfl_xor_sync(0xffffffffu, cnt[b], off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(&block_stats[0], mn);
+    atomicMax(&block_stats[1], mx);
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      if (cnt[b]) atomicAdd(&block_stats[2 + b], cnt[b]);
+  }
+  __syncthreads();
+  const unsigned t = threadIdx.x;
+  if (t == 0) atomicMin(&stats[0], block_stats[0]);
+  else if (t == 1) atomicMax(&stats[1], block_stats[1]);
+  else if (t < 18 && block_stats[t]) atomicAdd(&stats[t], block_stats[t]);
+}
+
+// K3, second launch.  Replaces the paint phase of
+// pallas_hist.py:_tiny_sort_kernel / tiny_sort16.  The TPU kernel runs its
+// stats phase and its paint phase as one sequential grid; CUDA blocks run
+// concurrently, so the stats come from a finished minmax_hist16_kernel launch
+// on the same stream instead.  Each block rotates the residue histogram by
+// min & 15 into the 16 true counts (exact whenever max - min < 16), prefix
+// sums them in shared memory and paints its part of the output:
+// out[i] = (T)(min + bucket) ^ flip.  Bound: writing n * sizeof(T) bytes.
+template <typename T>
+__global__ void fill16_kernel(const unsigned* __restrict__ stats, long long n,
+                              T flip, T* __restrict__ out) {
+  __shared__ long long cum[17];
+  const unsigned mn = stats[0];
+  if (threadIdx.x == 0) {
+    long long c = 0;
+    cum[0] = 0;
+    for (int j = 0; j < 16; ++j) {
+      c += stats[2 + ((mn + (unsigned)j) & 15u)];
+      cum[j + 1] = c;
+    }
+  }
+  __syncthreads();
+  paint_runs<T>(cum, 16, n, mn, flip, out);
+}
+
+// K4.  Replaces pallas_hist.py:_fill_kernel / fill_runs: the sorted carrier
+// from a histogram, hist[b] copies of (T)(base + b).  `cum_g` holds the k + 1
+// int64 prefix counts (cum[0] = 0), so more than 2^31 rows cannot overflow
+// as the TPU version's int32 prefix could.  Bound: writing n * sizeof(T)
+// bytes.  Each block keeps cum in shared memory (at most 8 KB for k = 1024);
+// each thread finds the bucket of its first output by binary search and
+// walks forward, so empty buckets and many run boundaries inside one block
+// need no special case.
+template <typename T>
+__global__ void fill_runs_kernel(const long long* __restrict__ cum_g, int k,
+                                 long long n, unsigned base,
+                                 T* __restrict__ out) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  long long* cum = reinterpret_cast<long long*>(smem);
+  for (int j = threadIdx.x; j <= k; j += blockDim.x) cum[j] = cum_g[j];
+  __syncthreads();
+  paint_runs<T>(cum, k, n, base, (T)0, out);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* srs_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+int srs_histogram(const void* x, int width, long long n, unsigned base, int k,
+                  void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = grid_for(n, width);
+  const size_t smem = (size_t)k * sizeof(int);
+  int* o = (int*)out;
+  switch (width) {
+    case 1:
+      histogram_kernel<uint8_t><<<grid, kThreads, smem, s>>>(
+          (const uint8_t*)x, n, (uint8_t)base, k, o);
+      break;
+    case 2:
+      histogram_kernel<uint16_t><<<grid, kThreads, smem, s>>>(
+          (const uint16_t*)x, n, (uint16_t)base, k, o);
+      break;
+    case 4:
+      histogram_kernel<uint32_t><<<grid, kThreads, smem, s>>>(
+          (const uint32_t*)x, n, (uint32_t)base, k, o);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int srs_minmax_hist16(const void* x, int width, long long n, unsigned flip,
+                      void* stats, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  unsigned* st = (unsigned*)stats;
+  cudaMemsetAsync(st, 0xFF, sizeof(unsigned), s);
+  cudaMemsetAsync(st + 1, 0, 17 * sizeof(unsigned), s);
+  const int grid = grid_for(n, width);
+  switch (width) {
+    case 2:
+      minmax_hist16_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
+          (const uint16_t*)x, n, (uint16_t)flip, st);
+      break;
+    case 4:
+      minmax_hist16_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
+          (const uint32_t*)x, n, (uint32_t)flip, st);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int srs_fill16(const void* stats, int width, long long n, unsigned flip,
+               void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned* st = (const unsigned*)stats;
+  const int grid = grid_for(n, width);
+  switch (width) {
+    case 2:
+      fill16_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
+          st, n, (uint16_t)flip, (uint16_t*)out);
+      break;
+    case 4:
+      fill16_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
+          st, n, (uint32_t)flip, (uint32_t*)out);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int srs_fill_runs(const void* cum, int k, long long n, unsigned base,
+                  int width, void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long* c = (const long long*)cum;
+  const int grid = grid_for(n, width);
+  const size_t smem = (size_t)(k + 1) * sizeof(long long);
+  switch (width) {
+    case 1:
+      fill_runs_kernel<uint8_t><<<grid, kThreads, smem, s>>>(
+          c, k, n, base, (uint8_t*)out);
+      break;
+    case 2:
+      fill_runs_kernel<uint16_t><<<grid, kThreads, smem, s>>>(
+          c, k, n, base, (uint16_t*)out);
+      break;
+    case 4:
+      fill_runs_kernel<uint32_t><<<grid, kThreads, smem, s>>>(
+          c, k, n, base, (uint32_t*)out);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

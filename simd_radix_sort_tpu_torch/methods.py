@@ -1,0 +1,114 @@
+"""Sort-method facade: a uniform registry over the sort engines.
+
+Counterpart of simd_radix_sort_tpu/methods.py.  Each method exposes `name`,
+`supports(key_dtype, payload_dtypes, n)`, `has_threshold`, `device` and a
+`run(keys, payloads, *, ascending, stable, block_threshold, digit_bits)`
+entry that takes and returns torch tensors.
+
+Ported methods:
+  * "xla"   — the comparison-sort engine (ops/xla_sort.py, `torch.sort`)
+  * "count" — counting / histogram sort on the CUDA kernels
+              (ops/counting.py), keys-only integer keys of <= 32 bits
+  * "seq"   — host NumPy stable-argsort model (differential baseline)
+Special selector: "auto" (static policy).  The JAX package's other names
+raise ValueError until they are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+from .utils import common, interop, transforms
+
+
+@dataclasses.dataclass(frozen=True)
+class SortMethod:
+    name: str
+    run: Callable  # (keys, payloads, *, ascending, stable, ...) -> (keys, payloads)
+    supports: Callable  # (key_dtype, payload_dtypes, n) -> bool
+    has_threshold: bool = False
+    device: bool = True  # False for host-side differential baselines
+
+
+def _supports_all(key_dtype, payload_dtypes, n) -> bool:
+    return True
+
+
+def _run_xla(keys, payloads, *, ascending=True, stable=False,
+             block_threshold=None, digit_bits=None):
+    from .ops import xla_sort
+    return xla_sort.sort_arrays(keys, payloads, ascending=ascending,
+                                stable=stable)
+
+
+def _run_count(keys, payloads, *, ascending=True, stable=False,
+               block_threshold=None, digit_bits=None):
+    from .ops import counting
+    if payloads:
+        raise ValueError("the count engine sorts keys only")
+    return counting.sort_keys(keys, ascending=ascending)
+
+
+def _count_supports(key_dtype, payload_dtypes, n) -> bool:
+    from .ops import counting
+    return counting.supports(key_dtype, payload_dtypes, n)
+
+
+def _run_seq(keys, payloads, *, ascending=True, stable=False,
+             block_threshold=None, digit_bits=None):
+    host = [interop.to_numpy(t) for t in (keys, *payloads)]
+    out = transforms.sort_np(host[0], *host[1:], ascending=ascending)
+    back = [interop.from_numpy(a, keys.device) for a in out]
+    return back[0], tuple(back[1:])
+
+
+REGISTRY: dict[str, SortMethod] = {}
+
+
+def register(method: SortMethod):
+    REGISTRY[method.name] = method
+
+
+register(SortMethod("xla", _run_xla, _supports_all))
+register(SortMethod("count", _run_count, _count_supports))
+register(SortMethod("seq", _run_seq, _supports_all, device=False))
+
+# Names the JAX package registers that have no port yet.
+NOT_YET_PORTED = ("radix", "rank", "quick", "quickseq", "torch", "cpp",
+                  "autotune")
+
+# Engine crossovers of the static "auto" policy: the JAX package's values
+# (methods.py:191-194), measured on a TPU.  They are placeholders here until
+# the H100 measures its own.
+COUNT_CROSSOVER_N_1BYTE = 1 << 17
+# == counting.SMALL_MIN_N, the engine's own 1024-bucket branch gate
+COUNT_MIN_N_ADAPTIVE = 1 << 21
+
+
+def resolve(method: str, key_dtype, payload_dtypes: Sequence, n: int | None
+            ) -> SortMethod:
+    """Pick a method; "auto" chooses the engine by key width, payloads and
+    row count exactly as the JAX package's static policy does."""
+    kdt = common.np_dtype(key_dtype)
+    pdts = tuple(common.np_dtype(d) for d in payload_dtypes)
+    if method == "auto":
+        if _count_supports(kdt, pdts, n):
+            floor = (COUNT_CROSSOVER_N_1BYTE if kdt.itemsize == 1
+                     else COUNT_MIN_N_ADAPTIVE)
+            if n is None or n >= floor:
+                return REGISTRY["count"]
+        return REGISTRY["xla"]
+    if method in NOT_YET_PORTED:
+        raise ValueError(f"sort method {method!r} is not yet ported to the "
+                         f"PyTorch package; have {sorted(REGISTRY)} and "
+                         "'auto'")
+    m = REGISTRY.get(method)
+    if m is None:
+        raise ValueError(f"unknown sort method {method!r}; "
+                         f"have {sorted(REGISTRY)}")
+    if not m.supports(kdt, pdts, n):
+        raise ValueError(
+            f"method {method!r} does not support key={kdt} "
+            f"payloads={pdts} n={n}")
+    return m

@@ -1,0 +1,252 @@
+"""Counting-sort kernels: histogram, min/max + residue histogram, the
+tiny-range sort and the run fill.
+
+Counterpart of simd_radix_sort_tpu/ops/pallas_hist.py.  Each wrapper checks
+its inputs and allocates its outputs; for a CUDA tensor it launches its
+hand-written kernel (csrc/hist_kernels.cu, built by ops/_build.py) or
+raises, and for a CPU tensor it runs the plain PyTorch version defined
+beside it.  The plain versions compute the same function on any device, and
+chip_smoke.py holds each kernel against its plain version on the card.
+
+Carriers are 1-, 2- or 4-byte integer tensors of any signedness; the
+kernels read their raw bits as unsigned integers of that width.
+
+`LAUNCHES[name]` counts the launches of each kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils import common
+from . import _build
+
+LAUNCHES = {"histogram": 0, "minmax_hist16": 0, "tiny_sort16": 0,
+            "fill_runs": 0}
+
+MAX_HIST_K = 1024   # K1 keeps k int32 counters in shared memory
+MAX_FILL_K = 4096   # K4 keeps k + 1 int64 prefix counts in shared memory
+_MAX_N = (1 << 31) - 1  # counts are int32, as in the JAX package
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _mask(width: int) -> int:
+    return (1 << (8 * width)) - 1
+
+
+def _check_carrier(x: torch.Tensor, widths) -> None:
+    if x.dtype.is_floating_point or x.dtype == torch.bool or \
+            x.element_size() not in widths:
+        raise TypeError(f"expected an integer carrier of {widths} bytes, "
+                        f"got {x.dtype}")
+    if x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("expected a contiguous 1-D tensor")
+    if x.numel() > _MAX_N:
+        raise ValueError(f"{x.numel()} rows exceed the int32 counts")
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); anything else raises."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def _launch(name: str, entry: str, device: torch.device, *args) -> None:
+    lib = _build.library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: {lib.srs_error_string(err).decode()} "
+                           f"(CUDA error {err})")
+    LAUNCHES[name] += 1
+
+
+def _unsigned_bits(x: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a 1/2/4-byte carrier as non-negative int64."""
+    return common.as_signed(x).to(torch.int64) & _mask(x.element_size())
+
+
+def _from_bits(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int64 values in [0, 2^w) -> tensor of `dtype` (w bytes) with those
+    bits."""
+    w = torch.empty((), dtype=dtype).element_size()
+    half = 1 << (8 * w - 1)
+    signed = torch.where(v >= half, v - 2 * half, v)
+    return signed.to(common.SIGNED_BY_WIDTH[w]).view(dtype)
+
+
+def _paint_plain(cum: torch.Tensor, n: int, base, flip: int,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """out[i] = ((base + b(i)) mod 2^w) ^ flip, b(i) = #{j : cum[j+1] <= i}
+    clamped to k - 1: the run fill both K3 and K4 paint."""
+    k = cum.numel() - 1
+    i = torch.arange(n, dtype=torch.int64, device=cum.device)
+    b = torch.searchsorted(cum[1:].contiguous(), i, right=True)
+    w = torch.empty((), dtype=dtype).element_size()
+    v = ((base + b.clamp_max(k - 1)) & _mask(w)) ^ flip
+    return _from_bits(v, dtype)
+
+
+# ---------------------------------------------------------------------------
+# K1: histogram
+# ---------------------------------------------------------------------------
+
+
+def histogram_plain(values: torch.Tensor, k: int, base: int = 0) -> torch.Tensor:
+    off = (_unsigned_bits(values) - base) & _mask(values.element_size())
+    return torch.bincount(off[off < k], minlength=k).to(torch.int32)
+
+
+def histogram(values: torch.Tensor, k: int, base: int = 0) -> torch.Tensor:
+    """hist[b] = #{i : (values_i - base) mod 2^w == b} for b in [0, k),
+    w the carrier's width in bits; other values are dropped.  With int32
+    values and base 0 this is pallas_hist.histogram: negative values and
+    values >= k are dropped.  Returns (k,) int32."""
+    _check_carrier(values, (1, 2, 4))
+    if not 1 <= k <= MAX_HIST_K:
+        raise ValueError(f"k={k} outside [1, {MAX_HIST_K}]")
+    base &= _mask(values.element_size())
+    if not _on_cuda(values):
+        return histogram_plain(values, k, base)
+    out = torch.zeros(k, dtype=torch.int32, device=values.device)
+    if values.numel():
+        _launch("histogram", "srs_histogram", values.device,
+                values.data_ptr(), values.element_size(), values.numel(),
+                base, k, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: min, max and residue histogram in one pass
+# ---------------------------------------------------------------------------
+
+
+def minmax_hist16_plain(x: torch.Tensor, flip: int = 0):
+    u = _unsigned_bits(x) ^ flip
+    hist = torch.bincount(u & 15, minlength=16).to(torch.int32)
+    return u.min(), u.max(), hist
+
+
+def _empty_stats(device):
+    z = torch.zeros((), dtype=torch.int64, device=device)
+    return z, z.clone(), torch.zeros(16, dtype=torch.int32, device=device)
+
+
+def _minmax_stats(x: torch.Tensor, flip: int) -> torch.Tensor:
+    """Launch K2: (18,) int32 words holding u32 min, max, hist_mod[16]."""
+    stats = torch.empty(18, dtype=torch.int32, device=x.device)
+    _launch("minmax_hist16", "srs_minmax_hist16", x.device, x.data_ptr(),
+            x.element_size(), x.numel(), flip, stats.data_ptr())
+    return stats
+
+
+def _u32(words: torch.Tensor) -> torch.Tensor:
+    return words.to(torch.int64) & 0xFFFFFFFF
+
+
+def minmax_hist16(x: torch.Tensor, flip: int = 0):
+    """(min, max, hist_mod) of u = x ^ flip (the 2- or 4-byte carrier's
+    bits, zero-extended) in one pass: min and max as int64 0-dim tensors,
+    hist_mod[b] = #{i : u_i & 15 == b} as (16,) int32.  With a uint32
+    carrier and flip 0 this is pallas_hist.minmax_hist16.  When
+    max - min < 16 the true histogram is hist[j] = hist_mod[(min + j) & 15].
+    For n = 0 it returns (0, 0, zeros)."""
+    _check_carrier(x, (2, 4))
+    flip &= _mask(x.element_size())
+    if not x.numel():
+        return _empty_stats(x.device)
+    if not _on_cuda(x):
+        return minmax_hist16_plain(x, flip)
+    stats = _minmax_stats(x, flip)
+    mm = _u32(stats[:2])
+    return mm[0], mm[1], stats[2:]
+
+
+# ---------------------------------------------------------------------------
+# K3: tiny-range counting sort
+# ---------------------------------------------------------------------------
+
+
+def tiny_sort16_plain(x: torch.Tensor, flip: int = 0):
+    mn, mx, hist_mod = minmax_hist16_plain(x, flip)
+    j = torch.arange(16, dtype=torch.int64, device=x.device)
+    counts = hist_mod.to(torch.int64)[(mn + j) & 15]
+    cum = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return _paint_plain(cum, x.numel(), mn, flip, x.dtype), mn, mx
+
+
+def tiny_sort16(x: torch.Tensor, flip: int = 0):
+    """Tiny-range counting sort of a 2- or 4-byte carrier ordered by
+    u = x ^ flip.  Returns (sorted, min, max) with min and max of u as
+    int64 0-dim tensors, always exact.  `sorted` is the carrier of
+    hist[j] copies of min + j (j < 16), and equals the sorted input only
+    when max - min < 16: callers gate on min and max.  With a uint32
+    carrier and flip 0 this is pallas_hist.tiny_sort16.
+
+    On the card it is two launches on one stream, K2 then a fill that
+    reads K2's stats from device memory: no host round trip between them."""
+    _check_carrier(x, (2, 4))
+    flip &= _mask(x.element_size())
+    if not x.numel():
+        mn, mx, _ = _empty_stats(x.device)
+        return x.clone(), mn, mx
+    if not _on_cuda(x):
+        return tiny_sort16_plain(x, flip)
+    stats = _minmax_stats(x, flip)
+    out = torch.empty_like(x)
+    _launch("tiny_sort16", "srs_fill16", x.device, stats.data_ptr(),
+            x.element_size(), x.numel(), flip, out.data_ptr())
+    mm = _u32(stats[:2])
+    return out, mm[0], mm[1]
+
+
+# ---------------------------------------------------------------------------
+# K4: run fill
+# ---------------------------------------------------------------------------
+
+
+def _prefix(hist: torch.Tensor) -> torch.Tensor:
+    """(k + 1,) int64 prefix counts, cum[0] = 0: int64 so that more than
+    2^31 rows cannot overflow."""
+    return torch.cat([hist.new_zeros(1, dtype=torch.int64),
+                      torch.cumsum(hist, 0, dtype=torch.int64)])
+
+
+def fill_runs_plain(hist: torch.Tensor, n: int, base: int,
+                    dtype) -> torch.Tensor:
+    dtype = common.torch_dtype(dtype)
+    return _paint_plain(_prefix(hist), n, base, 0, dtype)
+
+
+def fill_runs(hist: torch.Tensor, n: int, base: int, dtype) -> torch.Tensor:
+    """Expand a histogram into the sorted carrier: the concatenation over b
+    of hist[b] copies of (base + b) mod 2^w, as an (n,) tensor of the 1-,
+    2- or 4-byte integer `dtype`.  Requires sum(hist) == n; positions past
+    the last run repeat the last bucket."""
+    dtype = common.torch_dtype(dtype)
+    w = torch.empty((), dtype=dtype).element_size()
+    if dtype.is_floating_point or w not in (1, 2, 4):
+        raise TypeError(f"unsupported fill dtype {dtype}")
+    if hist.dtype != torch.int32 or hist.dim() != 1:
+        raise TypeError("expected a 1-D int32 histogram")
+    k = hist.numel()
+    if not 1 <= k <= MAX_FILL_K:
+        raise ValueError(f"k={k} outside [1, {MAX_FILL_K}]")
+    base &= _mask(w)
+    if not _on_cuda(hist):
+        return fill_runs_plain(hist, n, base, dtype)
+    cum = _prefix(hist)
+    out = torch.empty(n, dtype=dtype, device=hist.device)
+    if n:
+        _launch("fill_runs", "srs_fill_runs", hist.device, cum.data_ptr(), k,
+                n, base, w, out.data_ptr())
+    return out

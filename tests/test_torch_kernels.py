@@ -1,0 +1,212 @@
+"""The port's counting kernels (plain versions, on the CPU) against the JAX
+package's Pallas kernels run in interpret mode, exactly.
+
+On a CPU tensor each wrapper in ops/cuda_hist.py runs its plain PyTorch
+version; the CUDA kernels themselves are held against those plain versions
+on the card by chip_smoke.py.  The parameter grids are those of
+tests/test_pallas_hist.py.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from simd_radix_sort_tpu.ops import counting as jcounting
+from simd_radix_sort_tpu.ops import pallas_hist
+from simd_radix_sort_tpu_torch.ops import cuda_hist
+from simd_radix_sort_tpu_torch.utils import interop
+
+
+def _t(a):
+    return interop.from_numpy(a, "cpu")
+
+
+def _np(t):
+    return interop.to_numpy(t)
+
+
+@pytest.mark.parametrize("k", [16, 256, 1024])
+def test_histogram_matches_pallas_and_mxu(k):
+    """int32 offsets with out-of-range values on both sides: K1 == the
+    Pallas histogram == the MXU histogram it replaces."""
+    rng = np.random.default_rng(k)
+    v = rng.integers(-5, k + 5, 4099).astype(np.int32)
+    got = _np(cuda_hist.histogram(_t(v), k))
+    want = np.asarray(pallas_hist.histogram(jnp.asarray(v), k,
+                                            interpret=True))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, np.asarray(jcounting.mxu_histogram(
+        jnp.asarray(v), k)))
+
+
+def test_histogram_ignores_out_of_range():
+    v = np.array([0, 5, 5, 300, -1, 7], dtype=np.int32)
+    got = _np(cuda_hist.histogram(_t(v), 8))
+    want = np.asarray(pallas_hist.histogram(jnp.asarray(v), 8,
+                                            interpret=True))
+    assert np.array_equal(got, want)
+    assert got.tolist() == [1, 0, 0, 0, 0, 2, 0, 1]
+
+
+@pytest.mark.parametrize("dtype,base", [(np.uint8, 0), (np.int8, 0x80),
+                                        (np.uint16, 65530), (np.int16, 7),
+                                        (np.uint32, 2**32 - 3),
+                                        (np.int32, -500)])
+def test_histogram_base_wraps_in_carrier_width(dtype, base):
+    """The carrier form: offsets (x - base) mod 2^w, w the carrier width."""
+    rng = np.random.default_rng(11)
+    w = np.dtype(dtype).itemsize * 8
+    mask = (1 << w) - 1
+    u = (base + rng.integers(-3, 1030, 5000)) & mask
+    v = u.astype(np.uint64).astype(f"u{w // 8}").view(dtype)
+    got = _np(cuda_hist.histogram(_t(v), 1024, base))
+    off = (v.view(f"u{w // 8}").astype(np.int64) - base) & mask
+    assert np.array_equal(got, np.bincount(off[off < 1024], minlength=1024))
+
+
+@pytest.mark.parametrize("n_extra", [0, 1, 127, 12345])
+def test_fill_runs_matches_pallas(n_extra):
+    rng = np.random.default_rng(1)
+    n = pallas_hist.FILL_BLOCK + n_extra
+    v = rng.integers(0, 64, n).astype(np.int32)
+    hist = np.bincount(v, minlength=64).astype(np.int32)
+    got = _np(cuda_hist.fill_runs(_t(hist), n, 10, torch.int32))
+    want = np.asarray(pallas_hist.fill_runs(jnp.asarray(hist), n, 10,
+                                            jnp.int32, interpret=True))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, np.sort(v) + 10)
+
+
+def test_fill_runs_skewed_many_transitions_per_block():
+    k = 512
+    hist = np.full(k, 3, np.int32)
+    got = _np(cuda_hist.fill_runs(_t(hist), 3 * k, 0, torch.int32))
+    want = np.asarray(pallas_hist.fill_runs(jnp.asarray(hist), 3 * k, 0,
+                                            jnp.int32, interpret=True))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, np.repeat(np.arange(k), 3))
+
+
+def test_fill_runs_empty_buckets():
+    hist = np.array([0, 5, 0, 0, 2, 0], np.int32)
+    got = _np(cuda_hist.fill_runs(_t(hist), 7, 0, np.uint8))
+    want = np.asarray(pallas_hist.fill_runs(jnp.asarray(hist), 7, 0,
+                                            jnp.uint8, interpret=True))
+    assert got.dtype == np.uint8
+    assert np.array_equal(got, want)
+    assert got.tolist() == [1] * 5 + [4] * 2
+
+
+def test_fill_runs_base_wraps_in_carrier_width():
+    """base + b is taken modulo 2^w, as the counting engine's carriers
+    need: int8 output from base 0x80 runs -128 .. 127."""
+    hist = np.ones(256, np.int32)
+    got = _np(cuda_hist.fill_runs(_t(hist), 256, 0x80, torch.int8))
+    assert np.array_equal(got, np.arange(-128, 128, dtype=np.int8))
+
+
+@pytest.mark.parametrize("lo,width", [(0, 16), (7, 16), (2**31 - 5, 16),
+                                      (2**32 - 16, 16), (123456, 1),
+                                      (0, 1)])
+def test_minmax_hist16_matches_pallas(lo, width):
+    rng = np.random.default_rng(3)
+    n = pallas_hist.HIST_BLOCK_ROWS * 128 + 777
+    v = np.uint32(lo) + rng.integers(0, width, n).astype(np.uint32)
+    mn, mx, hm = cuda_hist.minmax_hist16(_t(v))
+    jmn, jmx, jhm = jax.jit(lambda x: pallas_hist.minmax_hist16(
+        x, interpret=True))(jnp.asarray(v))
+    assert (int(mn), int(mx)) == (int(jmn), int(jmx))
+    assert (int(mn), int(mx)) == (int(v.min()), int(v.max()))
+    assert np.array_equal(_np(hm), np.asarray(jhm))
+
+
+def test_minmax_hist16_small_and_empty():
+    for n in (1, 5, 130):
+        v = np.arange(n, dtype=np.uint32) % 3 + 10
+        mn, mx, hm = cuda_hist.minmax_hist16(_t(v))
+        jmn, jmx, jhm = pallas_hist.minmax_hist16(jnp.asarray(v),
+                                                  interpret=True)
+        assert (int(mn), int(mx)) == (int(jmn), int(jmx))
+        assert np.array_equal(_np(hm), np.asarray(jhm))
+    mn, mx, hm = cuda_hist.minmax_hist16(_t(np.zeros(0, np.uint32)))
+    assert (int(mn), int(mx), int(hm.sum())) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("lo,width,n_extra", [
+    (0, 16, 777), (7, 13, 0), (2**31 - 5, 16, 1), (2**32 - 16, 16, 12345),
+    (42, 1, 130), (0, 1, 0)])
+def test_tiny_sort16_matches_pallas(lo, width, n_extra):
+    rng = np.random.default_rng(5)
+    n = pallas_hist.TINY_BLOCK_ROWS * 128 + n_extra
+    v = np.uint32(lo) + rng.integers(0, width, n).astype(np.uint32)
+    out, mn, mx = cuda_hist.tiny_sort16(_t(v))
+    jout, jmn, jmx = jax.jit(lambda x: pallas_hist.tiny_sort16(
+        x, interpret=True))(jnp.asarray(v))
+    assert (int(mn), int(mx)) == (int(jmn), int(jmx))
+    assert np.array_equal(_np(out), np.asarray(jout))
+    assert np.array_equal(_np(out), np.sort(v))
+
+
+def test_tiny_sort16_multiblock_matches_pallas():
+    rng = np.random.default_rng(6)
+    n = pallas_hist.TINY_BLOCK_ROWS * 128 * 3 + 999
+    v = rng.integers(100, 116, n).astype(np.uint32)
+    out, mn, mx = cuda_hist.tiny_sort16(_t(v))
+    jout, jmn, jmx = pallas_hist.tiny_sort16(jnp.asarray(v), interpret=True)
+    assert np.array_equal(_np(out), np.asarray(jout))
+    assert (int(mn), int(mx)) == (int(jmn), int(jmx))
+
+
+def test_tiny_sort16_wide_range_matches_pallas_everywhere():
+    """Out of contract (range >= 16): min and max stay exact, and the
+    painted output is the same function of the residue histogram as the
+    TPU kernel's."""
+    rng = np.random.default_rng(7)
+    v = rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    out, mn, mx = cuda_hist.tiny_sort16(_t(v))
+    jout, jmn, jmx = pallas_hist.tiny_sort16(jnp.asarray(v), interpret=True)
+    assert (int(mn), int(mx)) == (int(v.min()), int(v.max()))
+    assert (int(mn), int(mx)) == (int(jmn), int(jmx))
+    assert np.array_equal(_np(out), np.asarray(jout))
+
+
+def test_tiny_sort16_two_byte_carrier_with_flip():
+    """The counting engine's 2-byte form: an int16 carrier holding
+    u ^ 0x8000, ordered by u, against the JAX kernel on u zero-extended."""
+    rng = np.random.default_rng(8)
+    u = (0x7FF8 + rng.integers(0, 16, 3000)).astype(np.uint16)
+    carrier = (u ^ np.uint16(0x8000)).view(np.int16)
+    out, mn, mx = cuda_hist.tiny_sort16(_t(carrier), flip=0x8000)
+    jout, jmn, jmx = pallas_hist.tiny_sort16(
+        jnp.asarray(u.astype(np.uint32)), interpret=True)
+    assert out.dtype == torch.int16
+    assert (int(mn), int(mx)) == (int(jmn), int(jmx))
+    got_u = _np(out).view(np.uint16) ^ np.uint16(0x8000)
+    assert np.array_equal(got_u, np.asarray(jout).astype(np.uint16))
+
+
+def test_wrappers_check_their_inputs():
+    x = torch.zeros(8, dtype=torch.float32)
+    with pytest.raises(TypeError):
+        cuda_hist.histogram(x, 16)
+    with pytest.raises(TypeError):
+        cuda_hist.minmax_hist16(torch.zeros(8, dtype=torch.int8))
+    with pytest.raises(ValueError):
+        cuda_hist.histogram(torch.zeros(8, dtype=torch.int32), 2048)
+    with pytest.raises(ValueError):
+        cuda_hist.histogram(torch.zeros((2, 4), dtype=torch.int32), 16)
+    with pytest.raises(ValueError):
+        cuda_hist.tiny_sort16(torch.zeros(8, dtype=torch.int32)[::2])
+    with pytest.raises(TypeError):
+        cuda_hist.fill_runs(torch.ones(4, dtype=torch.int64), 4, 0,
+                            torch.int32)
+
+
+def test_plain_versions_do_not_count_as_launches():
+    cuda_hist.reset_launches()
+    v = torch.arange(100, dtype=torch.int32)
+    cuda_hist.tiny_sort16(v)
+    cuda_hist.fill_runs(cuda_hist.histogram(v, 128), 100, 0, torch.int32)
+    assert all(c == 0 for c in cuda_hist.LAUNCHES.values())

@@ -1,0 +1,154 @@
+"""Rules the PyTorch port keeps: it stands alone, it never runs on the CPU
+unasked, and its data interop is bit-exact."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import simd_radix_sort_tpu as jsrs
+import simd_radix_sort_tpu_torch as tsrs
+from simd_radix_sort_tpu_torch.models import roofline
+from simd_radix_sort_tpu_torch.ops import _build
+from simd_radix_sort_tpu_torch.utils import common, interop
+
+REPO = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import pkgutil, sys
+import simd_radix_sort_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    __import__(m.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "simd_radix_sort_tpu"))
+print(len([m for m in sys.modules if m.startswith(pkg.__name__)]), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    # a fresh interpreter: this one has jax loaded by conftest already
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 15, proc.stdout
+
+
+def test_no_cuda_means_raise_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = np.arange(16, dtype=np.int32)[::-1].copy()
+    for call in (lambda: tsrs.sort(keys),
+                 lambda: tsrs.argsort(keys),
+                 lambda: tsrs.sort_batched(keys.reshape(2, 8)),
+                 lambda: tsrs.sort_multi((keys,)),
+                 lambda: tsrs.sort_packed(tsrs.pack_rows(keys, ()),
+                                          np.int32),
+                 lambda: interop.from_numpy(keys)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    out = tsrs.sort(keys, device="cpu")
+    assert out.device.type == "cpu"
+    assert np.array_equal(interop.to_numpy(out), np.arange(16))
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.Path, "is_file", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
+
+
+def test_kernel_sources_and_build_flags():
+    src = _build.SOURCES[0]
+    assert src.is_file() and src.suffix == ".cu"
+    text = src.read_text()
+    for entry in _build._SIGNATURES:
+        assert f"int {entry}(" in text
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.BUILD_DIR.parts[-2:] == ("build", "srs_torch")
+    assert _build.library_path().parent == _build.BUILD_DIR
+
+
+def _all_dtype_arrays(n=257, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for dt in common.KEY_DTYPES:
+        raw = rng.integers(0, 256, n * dt.itemsize, dtype=np.uint8).view(dt)
+        if dt.kind == "f":
+            ubits = np.array([0x7FC00001, 0xFFC00003, 0x80000000, 0]
+                             if dt.itemsize == 4 else
+                             [0x7FF8000000000001, 0xFFF8000000000003,
+                              0x8000000000000000, 0],
+                             dtype=common.unsigned_of(dt))
+            raw = np.concatenate([raw, ubits.view(dt),
+                                  np.array([np.inf, -np.inf], dt)])
+        out.append(raw)
+    return out
+
+
+def test_interop_round_trips_every_dtype_bit_exactly():
+    for arr in _all_dtype_arrays():
+        t = interop.from_numpy(arr, "cpu")
+        assert t.dtype == common.torch_dtype(arr.dtype)
+        back = interop.to_numpy(t)
+        assert back.dtype == arr.dtype
+        assert np.array_equal(back.view(np.uint8), arr.view(np.uint8))
+        two_d = interop.to_numpy(interop.from_numpy(arr[:256].reshape(16, 16),
+                                                    "cpu"))
+        assert two_d.shape == (16, 16)
+        assert np.array_equal(two_d.reshape(-1).view(np.uint8),
+                              arr[:256].view(np.uint8))
+        assert np.array_equal(interop.to_numpy(t, np.uint8),
+                              arr.view(np.uint8))
+
+
+def test_one_dataset_through_both_packages():
+    """NaN-payload floats, ±0.0 and ±inf as keys and as payloads: the
+    port's result, carried back with interop, equals the JAX package's."""
+    arrays = _all_dtype_arrays(n=301, seed=1)
+    f64 = arrays[-1]
+    f32 = arrays[-2][:f64.size]
+    for keys in (f64, f32):
+        want = jsrs.sort(keys, f32, f64, stable=True)
+        got = tsrs.sort(interop.from_numpy(keys, "cpu"),
+                        interop.from_numpy(f32, "cpu"),
+                        interop.from_numpy(f64, "cpu"), stable=True,
+                        device="cpu")
+        for g, w in zip(got, want):
+            assert np.array_equal(interop.to_numpy(g).view(np.uint8),
+                                  np.asarray(w).view(np.uint8))
+
+
+def test_config_from_jax():
+    jcfg = jsrs.SortConfig(ascending=False, method="xla", stable=True,
+                           block_threshold=64, digit_bits=8)
+    cfg = interop.config_from_jax(dataclasses.asdict(jcfg))
+    assert isinstance(cfg, tsrs.SortConfig)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    with pytest.raises(ValueError, match="no fields"):
+        interop.config_from_jax({"ascending": True, "mesh": None})
+
+
+def test_roofline_picks_the_h100_part_by_name():
+    sxm = roofline.chip_for_name("NVIDIA H100 80GB HBM3")
+    pcie = roofline.chip_for_name("NVIDIA H100 PCIe")
+    assert (sxm.hbm_gbps, pcie.hbm_gbps) == (3350.0, 2000.0)
+    assert roofline.stream_roofline_rows_per_s(4, chip=sxm) == \
+        3350e9 / 8
+    assert roofline.radix_sort_roofline_rows_per_s(16, 64, chip=sxm) == \
+        3350e9 / (8 * 16 * 2)
+    assert abs(roofline.bound_ms(3350e6, chip=sxm) - 1.0) < 1e-12
+
+
+def test_public_surface_mirrors_the_jax_package():
+    assert set(tsrs.__all__) == set(jsrs.__all__)
+    assert set(tsrs.SORT_METHODS) == {"xla", "count", "seq"}
+    assert os.path.basename(tsrs.__file__) == "__init__.py"
