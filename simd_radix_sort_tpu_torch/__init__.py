@@ -2,9 +2,10 @@
 
 The same sort API as the JAX package (10 key dtypes, payload streams in
 lock-step, ascending and descending, the packed row layout, the method
-registry) on torch tensors.  The counting engine runs on hand-written CUDA
-kernels for Hopper (csrc/, built at first use); each kernel has a plain
-PyTorch version that serves CPU tensors.  Entry points run on the CUDA
+registry) on torch tensors.  The counting engine and the radix engine's
+bit-partition mover run on hand-written CUDA kernels for Hopper (csrc/,
+built at first use); each kernel has a plain PyTorch version that serves
+CPU tensors.  Entry points run on the CUDA
 device unless the caller passes device="cpu".
 
 The package imports torch and NumPy only; it never imports jax or the JAX

@@ -14,7 +14,7 @@ import dataclasses
 DEFAULT_BLOCK_THRESHOLD = None
 
 # LSD digit width of the radix engine; None keeps the per-key-width
-# default.  No ported engine reads it yet.
+# default (ops/radix.py).
 DEFAULT_DIGIT_BITS = None
 
 

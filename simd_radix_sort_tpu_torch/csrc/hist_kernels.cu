@@ -1,5 +1,6 @@
 // Counting-sort kernels for NVIDIA Hopper (sm_90a): the CUDA C++ port of the
-// Pallas kernels in simd_radix_sort_tpu/ops/pallas_hist.py.
+// Pallas kernels in simd_radix_sort_tpu/ops/pallas_hist.py (K1-K4) and of the
+// packed uint8 run fill in scripts/u8_attack.py (K6).
 //
 // Plain C entry points, built with nvcc into a shared library and bound with
 // ctypes (simd_radix_sort_tpu_torch/ops/_build.py).  The Python wrappers, with
@@ -8,7 +9,7 @@
 // caller's stream, does not synchronise, allocates nothing and returns
 // cudaGetLastError().
 //
-// All four kernels are bound by device-memory bytes: each reads or writes
+// All five kernels are bound by device-memory bytes: each reads or writes
 // every element once and does a handful of integer operations on it.  The
 // designs therefore aim at one streaming pass with 16-byte accesses per
 // thread, and keep every per-element counter in registers or shared memory
@@ -225,6 +226,36 @@ __global__ void fill_runs_kernel(const long long* __restrict__ cum_g, int k,
   paint_runs<T>(cum, k, n, base, (T)0, out);
 }
 
+// K6.  Replaces the kernel inside scripts/u8_attack.py:fill_runs_packed: the
+// uint8 run fill stored as packed u32 words, four output bytes per word.
+// Output byte i is the bucket b (k <= 256) whose run holds i, so the bytes
+// are hist[b] copies of b: K4's function for uint8 and base 0.  The prefix is
+// int64 where the TPU version's is int32.  Bound: writing n bytes.  Each
+// thread paints whole words, one per grid-stride step: one binary search
+// finds the bucket of the word's first byte and the other three walk forward
+// over the run boundaries they cross.  Words of neighbouring threads are
+// neighbours, so a warp stores 128 contiguous bytes.
+__global__ void fill_runs_packed_kernel(const long long* __restrict__ cum_g,
+                                        int k, long long nwords,
+                                        uint32_t* __restrict__ out) {
+  __shared__ long long cum[257];
+  for (int j = threadIdx.x; j <= k; j += blockDim.x) cum[j] = cum_g[j];
+  __syncthreads();
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long w = tid; w < nwords; w += stride) {
+    const long long i0 = w * 4;
+    int b = bucket_of(cum, k, i0);
+    uint32_t word = 0;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      while (b < k - 1 && cum[b + 1] <= i0 + m) ++b;
+      word |= (uint32_t)b << (8 * m);
+    }
+    out[w] = word;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -322,6 +353,18 @@ int srs_fill_runs(const void* cum, int k, long long n, unsigned base,
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+int srs_fill_runs_packed(const void* cum, int k, long long n, void* out,
+                         void* stream) {
+  if (k < 1 || k > 256 || n % 4) return (int)cudaErrorInvalidValue;
+  const long long nwords = n / 4;
+  // width 16 makes grid_for size the grid for one item (here a word) per
+  // thread and step
+  const int grid = grid_for(nwords, 16);
+  fill_runs_packed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const long long*)cum, k, nwords, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

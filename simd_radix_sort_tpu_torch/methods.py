@@ -7,6 +7,8 @@ entry that takes and returns torch tensors.
 
 Ported methods:
   * "xla"   — the comparison-sort engine (ops/xla_sort.py, `torch.sort`)
+  * "radix" — LSD radix sort (ops/radix.py) with its default mover, a
+              stable torch.sort per 16- or 32-bit digit
   * "count" — counting / histogram sort on the CUDA kernels
               (ops/counting.py), keys-only integer keys of <= 32 bits
   * "seq"   — host NumPy stable-argsort model (differential baseline)
@@ -42,6 +44,13 @@ def _run_xla(keys, payloads, *, ascending=True, stable=False,
                                 stable=stable)
 
 
+def _run_radix(keys, payloads, *, ascending=True, stable=False,
+               block_threshold=None, digit_bits=None):
+    from .ops import radix
+    return radix.sort_arrays(keys, payloads, ascending=ascending,
+                             stable=stable, digit_bits=digit_bits)
+
+
 def _run_count(keys, payloads, *, ascending=True, stable=False,
                block_threshold=None, digit_bits=None):
     from .ops import counting
@@ -71,11 +80,12 @@ def register(method: SortMethod):
 
 
 register(SortMethod("xla", _run_xla, _supports_all))
+register(SortMethod("radix", _run_radix, _supports_all))
 register(SortMethod("count", _run_count, _count_supports))
 register(SortMethod("seq", _run_seq, _supports_all, device=False))
 
 # Names the JAX package registers that have no port yet.
-NOT_YET_PORTED = ("radix", "rank", "quick", "quickseq", "torch", "cpp",
+NOT_YET_PORTED = ("rank", "quick", "quickseq", "torch", "cpp",
                   "autotune")
 
 # Engine crossovers of the static "auto" policy: the JAX package's values

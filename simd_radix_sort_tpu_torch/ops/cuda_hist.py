@@ -1,7 +1,8 @@
 """Counting-sort kernels: histogram, min/max + residue histogram, the
-tiny-range sort and the run fill.
+tiny-range sort, the run fill and its packed uint8 form.
 
-Counterpart of simd_radix_sort_tpu/ops/pallas_hist.py.  Each wrapper checks
+Counterpart of simd_radix_sort_tpu/ops/pallas_hist.py (K1-K4) and of
+`fill_runs_packed` in scripts/u8_attack.py (K6).  Each wrapper checks
 its inputs and allocates its outputs; for a CUDA tensor it launches its
 hand-written kernel (csrc/hist_kernels.cu, built by ops/_build.py) or
 raises, and for a CPU tensor it runs the plain PyTorch version defined
@@ -22,10 +23,11 @@ from ..utils import common
 from . import _build
 
 LAUNCHES = {"histogram": 0, "minmax_hist16": 0, "tiny_sort16": 0,
-            "fill_runs": 0}
+            "fill_runs": 0, "fill_runs_packed": 0}
 
 MAX_HIST_K = 1024   # K1 keeps k int32 counters in shared memory
 MAX_FILL_K = 4096   # K4 keeps k + 1 int64 prefix counts in shared memory
+MAX_PACKED_K = 256  # K6 writes one byte per row
 _MAX_N = (1 << 31) - 1  # counts are int32, as in the JAX package
 
 
@@ -49,24 +51,8 @@ def _check_carrier(x: torch.Tensor, widths) -> None:
         raise ValueError(f"{x.numel()} rows exceed the int32 counts")
 
 
-def _on_cuda(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); anything else raises."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {x.device}")
-
-
 def _launch(name: str, entry: str, device: torch.device, *args) -> None:
-    lib = _build.library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry}: {lib.srs_error_string(err).decode()} "
-                           f"(CUDA error {err})")
+    _build.launch(entry, device, *args)
     LAUNCHES[name] += 1
 
 
@@ -115,7 +101,7 @@ def histogram(values: torch.Tensor, k: int, base: int = 0) -> torch.Tensor:
     if not 1 <= k <= MAX_HIST_K:
         raise ValueError(f"k={k} outside [1, {MAX_HIST_K}]")
     base &= _mask(values.element_size())
-    if not _on_cuda(values):
+    if not _build.on_cuda(values):
         return histogram_plain(values, k, base)
     out = torch.zeros(k, dtype=torch.int32, device=values.device)
     if values.numel():
@@ -164,7 +150,7 @@ def minmax_hist16(x: torch.Tensor, flip: int = 0):
     flip &= _mask(x.element_size())
     if not x.numel():
         return _empty_stats(x.device)
-    if not _on_cuda(x):
+    if not _build.on_cuda(x):
         return minmax_hist16_plain(x, flip)
     stats = _minmax_stats(x, flip)
     mm = _u32(stats[:2])
@@ -199,7 +185,7 @@ def tiny_sort16(x: torch.Tensor, flip: int = 0):
     if not x.numel():
         mn, mx, _ = _empty_stats(x.device)
         return x.clone(), mn, mx
-    if not _on_cuda(x):
+    if not _build.on_cuda(x):
         return tiny_sort16_plain(x, flip)
     stats = _minmax_stats(x, flip)
     out = torch.empty_like(x)
@@ -214,9 +200,9 @@ def tiny_sort16(x: torch.Tensor, flip: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def _prefix(hist: torch.Tensor) -> torch.Tensor:
-    """(k + 1,) int64 prefix counts, cum[0] = 0: int64 so that more than
-    2^31 rows cannot overflow."""
+def prefix_counts(hist: torch.Tensor) -> torch.Tensor:
+    """(k + 1,) int64 exclusive prefix sums of int32 counts, with the total
+    last (cum[0] = 0): int64 so that more than 2^31 rows cannot overflow."""
     return torch.cat([hist.new_zeros(1, dtype=torch.int64),
                       torch.cumsum(hist, 0, dtype=torch.int64)])
 
@@ -224,7 +210,7 @@ def _prefix(hist: torch.Tensor) -> torch.Tensor:
 def fill_runs_plain(hist: torch.Tensor, n: int, base: int,
                     dtype) -> torch.Tensor:
     dtype = common.torch_dtype(dtype)
-    return _paint_plain(_prefix(hist), n, base, 0, dtype)
+    return _paint_plain(prefix_counts(hist), n, base, 0, dtype)
 
 
 def fill_runs(hist: torch.Tensor, n: int, base: int, dtype) -> torch.Tensor:
@@ -242,11 +228,43 @@ def fill_runs(hist: torch.Tensor, n: int, base: int, dtype) -> torch.Tensor:
     if not 1 <= k <= MAX_FILL_K:
         raise ValueError(f"k={k} outside [1, {MAX_FILL_K}]")
     base &= _mask(w)
-    if not _on_cuda(hist):
+    if not _build.on_cuda(hist):
         return fill_runs_plain(hist, n, base, dtype)
-    cum = _prefix(hist)
+    cum = prefix_counts(hist)
     out = torch.empty(n, dtype=dtype, device=hist.device)
     if n:
         _launch("fill_runs", "srs_fill_runs", hist.device, cum.data_ptr(), k,
                 n, base, w, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6: packed uint8 run fill
+# ---------------------------------------------------------------------------
+
+
+def fill_runs_packed_plain(hist: torch.Tensor, n: int) -> torch.Tensor:
+    return _paint_plain(prefix_counts(hist), n, 0, 0, torch.uint8)
+
+
+def fill_runs_packed(hist: torch.Tensor, n: int) -> torch.Tensor:
+    """The uint8 run fill written as packed u32 words: an (n,) uint8
+    tensor of hist[b] copies of b for a histogram of at most 256 buckets,
+    equal to fill_runs(hist, n, 0, torch.uint8).  n must be a multiple of
+    4, as in the JAX version.  Requires sum(hist) == n; positions past the
+    last run repeat the last bucket."""
+    if n % 4:
+        raise ValueError(f"n={n} is not a multiple of 4")
+    if hist.dtype != torch.int32 or hist.dim() != 1:
+        raise TypeError("expected a 1-D int32 histogram")
+    k = hist.numel()
+    if not 1 <= k <= MAX_PACKED_K:
+        raise ValueError(f"k={k} outside [1, {MAX_PACKED_K}]")
+    if not _build.on_cuda(hist):
+        return fill_runs_packed_plain(hist, n)
+    cum = prefix_counts(hist)
+    out = torch.empty(n, dtype=torch.uint8, device=hist.device)
+    if n:
+        _launch("fill_runs_packed", "srs_fill_runs_packed", hist.device,
+                cum.data_ptr(), k, n, out.data_ptr())
     return out

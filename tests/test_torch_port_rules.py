@@ -67,11 +67,12 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_and_build_flags():
-    src = _build.SOURCES[0]
-    assert src.is_file() and src.suffix == ".cu"
-    text = src.read_text()
+    assert [s.name for s in _build.SOURCES] == ["hist_kernels.cu",
+                                                 "partition_kernels.cu"]
+    assert all(src.is_file() for src in _build.SOURCES)
+    text = "".join(src.read_text() for src in _build.SOURCES)
     for entry in _build._SIGNATURES:
-        assert f"int {entry}(" in text
+        assert text.count(f"int {entry}(") == 1
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.parts[-2:] == ("build", "srs_torch")
     assert _build.library_path().parent == _build.BUILD_DIR
@@ -150,5 +151,5 @@ def test_roofline_picks_the_h100_part_by_name():
 
 def test_public_surface_mirrors_the_jax_package():
     assert set(tsrs.__all__) == set(jsrs.__all__)
-    assert set(tsrs.SORT_METHODS) == {"xla", "count", "seq"}
+    assert set(tsrs.SORT_METHODS) == {"xla", "radix", "count", "seq"}
     assert os.path.basename(tsrs.__file__) == "__init__.py"
