@@ -8,6 +8,9 @@ Phases, each raising on failure:
   2. kernels: each of K1-K6 against its plain PyTorch version on the card,
      exactly (all are integer functions), at the main path's shapes and at
      ragged, misaligned and edge cases; K6 also against K4's uint8 output.
+     K4 and K6 also where runs meet their tiles' edges
+     (cuda_hist.tile_edge_cases), at the tile the wrappers launch with and
+     at a 64-byte tile.
   3. main paths at --n rows (default 10^8), data made from --seed with the
      port's utils/data.py, each case driven with the launch counts set to 0
      just before it and read just after:
@@ -26,7 +29,8 @@ Phases, each raising on failure:
      (kernel, plain version, one library call, bound) and each main-path
      case (rows/s and fraction of the roofline model); one further call of
      each under torch.profiler gives device time by kernel and the
-     device's idle share of the call.
+     device's idle share of the call.  K4 and K6 are also timed at tiles
+     of 4-64 KiB, and each of their calls must be one kernel on the card.
 
 Prints one {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -208,6 +212,44 @@ def main() -> int:
         hold("fill_runs", (ch.fill_runs(hist, size, 3, dtype),),
              (ch.fill_runs_plain(hist, size, 3, dtype),),
              f"skewed/empty k={len(hist_list)}")
+    def fill_at_tile(hist, size, base, dtype, tile):
+        """K4 launched with a tile of `tile` bytes, or K6 for dtype None,
+        past the wrappers (and their launch counts)."""
+        out = torch.empty(size, dtype=dtype or torch.uint8, device=dev)
+        if dtype is None:
+            _build.launch("srs_fill_runs_packed", dev, hist.data_ptr(),
+                          hist.numel(), size, tile, out.data_ptr())
+        else:
+            w = out.element_size()
+            _build.launch("srs_fill_runs", dev, hist.data_ptr(), hist.numel(),
+                          size, base & ((1 << (8 * w)) - 1), w, tile,
+                          out.data_ptr())
+        return out
+
+    # K4 and K6 where runs meet the tiles' edges: at the wrappers' tile,
+    # and at a 64-byte tile, where most runs of these cases span whole
+    # tiles; K6 also against K4's uint8 output
+    for width, dtype, base in ((1, torch.int8, 0x80),
+                               (2, torch.int16, 0x7FF0),
+                               (4, torch.int32, 77)):
+        for label, (h, size) in ch.tile_edge_cases(width).items():
+            hist = torch.from_numpy(h).to(dev)
+            want = (ch.fill_runs_plain(hist, size, base, dtype),)
+            hold("fill_runs", (ch.fill_runs(hist, size, base, dtype),), want,
+                 f"{label} {dtype} n={size}")
+            hold("fill_runs", (fill_at_tile(hist, size, base, dtype, 64),),
+                 want, f"{label} {dtype} n={size} tile=64")
+    for label, (h, size) in ch.tile_edge_cases(1, ch.MAX_PACKED_K).items():
+        hist = torch.from_numpy(h).to(dev)
+        size -= size % 4
+        want = (ch.fill_runs_packed_plain(hist, size),)
+        got = ch.fill_runs_packed(hist, size)
+        hold("fill_runs_packed", (got,), want, f"{label} n={size}")
+        hold("fill_runs_packed", (got,),
+             (ch.fill_runs(hist, size, 0, torch.uint8),),
+             f"{label} n={size} against K4")
+        hold("fill_runs_packed", (fill_at_tile(hist, size, 0, None, 64),),
+             want, f"{label} n={size} tile=64")
     # K5: masks all False, all True, alternating and random; 1, 2 and 4
     # streams of 4- and 8-byte words; the ragged size reads offset views
     # (a misaligned mask) and also runs the smallest tile
@@ -616,16 +658,51 @@ def main() -> int:
         lib_ms = time_ms(lib)
         b_ms, b_by = bound(nbytes, ops)
         _, per = device_profile(kern, (name,))
-        dev_ms = sum(v for k, v in per.items()
-                     if any(f in k for f in KERNEL_FUNCTIONS[name]))
+        mine = {k: v for k, v in per.items()
+                if any(f in k for f in KERNEL_FUNCTIONS[name])}
+        if name in ("fill_runs", "fill_runs_packed") and len(per) > 1:
+            raise AssertionError(f"{name}: one call ran {sorted(per)} on "
+                                 "the card, not its kernel alone")
         t = {"name": name, "shape": shape, "ms": min(k1, k2),
-             "device_ms": dev_ms if per else None,
+             "device_ms": sum(mine.values()) if per else None,
+             "device_ms_by_function": {k[:80]: v for k, v in mine.items()},
              "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
              "plain_ms_runs": [p1, p2], "library_ms": lib_ms,
              "library_call": lib_call,
              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
         timings.append(t)
         log(f"phase 4: {json.dumps(t)}")
+
+    # K4 and K6 at tiles of 4-64 KiB, past the wrappers: the kernel's
+    # device time in one call from the profiler (back-to-back launches
+    # between events would time the host's launch rate), the tiles taken in
+    # turn forwards and backwards, twice
+    fill_shapes = [("fill_runs", "int8 k=256 (case b)", h256, n, 0x80,
+                    torch.int8),
+                   ("fill_runs", "int32 k=1024 (case d)", h1024, n, -500,
+                    torch.int32),
+                   ("fill_runs_packed", "uint8 k=256 (case j)", h256u, n4, 0,
+                    None)]
+    tiles = (4096, 8192, 16384, 32768, 65536)
+    tile_ms = {(shape, tile): [] for _, shape, *_ in fill_shapes
+               for tile in tiles}
+    for name, shape, hist, size, base, dtype in fill_shapes:
+        want = (ch.fill_runs_packed_plain(hist, size) if dtype is None
+                else ch.fill_runs_plain(hist, size, base, dtype))
+        for tile in tiles:
+            hold(name, (fill_at_tile(hist, size, base, dtype, tile),),
+                 (want,), f"{shape} tile={tile}")
+        del want
+        for tile in (*tiles, *reversed(tiles)) * 2:
+            _, per = device_profile(
+                lambda: fill_at_tile(hist, size, base, dtype, tile), (name,))
+            tile_ms[(shape, tile)].append(sum(per.values()) if per else None)
+    tile_sweep = [{"name": name, "shape": shape, "tile_bytes": tile,
+                   "shipped": tile == ch.FILL_TILE_BYTES,
+                   "device_ms_runs": tile_ms[(shape, tile)]}
+                  for name, shape, *_ in fill_shapes for tile in tiles]
+    for t in tile_sweep:
+        log(f"phase 4: tile sweep {json.dumps(t)}")
 
     kernels = []
     for name, (replaces, source) in TPU_KERNELS.items():
@@ -645,8 +722,11 @@ def main() -> int:
                              f"{idle}")
 
     report = {"card": card, "torch": torch.__version__,
+              "nvcc_report": (nvcc_log.read_text() if nvcc_log.exists()
+                              else None),
               "cuda": torch.version.cuda, "n": n, "seed": args.seed,
               "kernels": kernels, "kernel_timings": timings,
+              "fill_tile_sweep": tile_sweep,
               "main_path": results,
               "seconds": time.perf_counter() - t_start}
     if args.out:

@@ -66,16 +66,22 @@ __device__ __forceinline__ void for_each(const T* __restrict__ x, long long n,
   for (long long i = head + tid; i < n; i += stride) f(x[i]);
 }
 
-// #{j < k : cum[j + 1] <= i}, clamped to k - 1: the bucket whose run holds
-// output position i.  cum[0..k] is non-decreasing.
-__device__ __forceinline__ int bucket_of(const long long* cum, int k,
+// The least b in [lo, hi] with i < cum[b + 1], or hi if there is none.
+// cum is non-decreasing.
+__device__ __forceinline__ int bucket_in(const long long* cum, int lo, int hi,
                                          long long i) {
-  int lo = 0, hi = k;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (cum[mid + 1] <= i) lo = mid + 1; else hi = mid;
   }
-  return lo < k ? lo : k - 1;
+  return lo;
+}
+
+// #{j < k : cum[j + 1] <= i}, clamped to k - 1: the bucket whose run holds
+// output position i.  cum[0..k] is non-decreasing.
+__device__ __forceinline__ int bucket_of(const long long* cum, int k,
+                                         long long i) {
+  return bucket_in(cum, 0, k - 1, i);
 }
 
 // out[i] = (T)(base + bucket_of(i)) ^ flip for every i < n, 16 bytes a
@@ -207,43 +213,169 @@ __global__ void fill16_kernel(const unsigned* __restrict__ stats, long long n,
   paint_runs<T>(cum, 16, n, mn, flip, out);
 }
 
-// K4.  Replaces pallas_hist.py:_fill_kernel / fill_runs: the sorted carrier
-// from a histogram, hist[b] copies of (T)(base + b).  `cum_g` holds the k + 1
-// int64 prefix counts (cum[0] = 0), so more than 2^31 rows cannot overflow
-// as the TPU version's int32 prefix could.  Bound: writing n * sizeof(T)
-// bytes.  Each block keeps cum in shared memory (at most 8 KB for k = 1024);
-// each thread finds the bucket of its first output by binary search and
-// walks forward, so empty buckets and many run boundaries inside one block
-// need no special case.
+constexpr int kMaxFillK = 4096;  // cuda_hist.MAX_FILL_K
+constexpr int kMaxPrefixPer = kMaxFillK / kThreads;
+
+// cum[0..k] = the int64 exclusive prefix sums of the int32 counts hist[0..k),
+// cum[k] the total, built by every block in shared memory: each thread sums
+// a contiguous chunk of at most 16 counts held in registers, a warp-shuffle
+// scan and a scan over the warps' totals give each chunk its start.  The
+// counts are read once per block from L2.  Ends with __syncthreads().
+__device__ __forceinline__ void block_prefix(const int* __restrict__ hist,
+                                             int k, long long* cum) {
+  __shared__ long long warp_start[kThreads / 32];
+  const int per = (k + kThreads - 1) / kThreads;
+  const int j0 = threadIdx.x * per;
+  int h[kMaxPrefixPer];
+  long long s = 0;
+#pragma unroll
+  for (int j = 0; j < kMaxPrefixPer; ++j) {
+    h[j] = (j < per && j0 + j < k) ? hist[j0 + j] : 0;
+    s += h[j];
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long incl = s;  // inclusive scan of s within the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) warp_start[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {  // exclusive scan of the warps' totals
+    const long long t = lane < kThreads / 32 ? warp_start[lane] : 0;
+    long long u = t;
+#pragma unroll
+    for (int off = 1; off < kThreads / 32; off <<= 1) {
+      const long long y = __shfl_up_sync(0xffffffffu, u, off);
+      if (lane >= off) u += y;
+    }
+    if (lane < kThreads / 32) warp_start[lane] = u - t;
+  }
+  __syncthreads();
+  long long c = warp_start[warp] + incl - s;
+#pragma unroll
+  for (int j = 0; j < kMaxPrefixPer; ++j)
+    if (j < per && j0 + j < k) {
+      cum[j0 + j] = c;
+      c += h[j];
+    }
+  if (threadIdx.x == kThreads - 1) cum[k] = c;  // the total
+  __syncthreads();
+}
+
+// One 16-byte vector of kPer copies of v.
 template <typename T>
-__global__ void fill_runs_kernel(const long long* __restrict__ cum_g, int k,
-                                 long long n, unsigned base,
+__device__ __forceinline__ uint4 splat(T v) {
+  const uint32_t word = (uint32_t)v * (sizeof(T) == 1   ? 0x01010101u
+                                       : sizeof(T) == 2 ? 0x00010001u
+                                                        : 1u);
+  return make_uint4(word, word, word, word);
+}
+
+// The core of K4 and K6: out[i] = (T)(base + bucket_of(i)) for the nvec
+// 16-byte vectors of an aligned output, cut into tiles of tile_vecs vectors
+// that a persistent grid takes in turn.  For each tile two threads find the
+// buckets of its first and last position; when they agree (almost every tile
+// at the main path's shapes: a run is then far longer than a tile) the block
+// stores one splat to every vector of the tile, with no shared-memory read
+// per element.  Otherwise each vector searches only between those two
+// buckets and walks forward over the boundaries it crosses, so boundary work
+// over the grid is O(k + tiles).  Stores stream (__stcs): the output passes
+// through L2 once.
+template <typename T>
+__device__ __forceinline__ void fill_tiles(const long long* cum, int k,
+                                           long long nvec, unsigned base,
+                                           long long tile_vecs,
+                                           uint4* __restrict__ out) {
+  constexpr int kPer = 16 / sizeof(T);
+  __shared__ int bounds[2][2];  // [tile parity][first, last]: one sync a tile
+  const long long ntiles = (nvec + tile_vecs - 1) / tile_vecs;
+  int parity = 0;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x, parity ^= 1) {
+    const long long v0 = t * tile_vecs;
+    const long long v1 = min(v0 + tile_vecs, nvec);
+    if (threadIdx.x < 2)
+      bounds[parity][threadIdx.x] =
+          bucket_of(cum, k, threadIdx.x ? v1 * kPer - 1 : v0 * kPer);
+    __syncthreads();
+    const int b_lo = bounds[parity][0], b_hi = bounds[parity][1];
+    if (b_lo == b_hi) {
+      const uint4 w = splat<T>((T)(base + (unsigned)b_lo));
+      for (long long v = v0 + threadIdx.x; v < v1; v += kThreads)
+        __stcs(out + v, w);
+      continue;
+    }
+    for (long long v = v0 + threadIdx.x; v < v1; v += kThreads) {
+      const long long i0 = v * kPer;
+      int b = bucket_in(cum, b_lo, b_hi, i0);
+      T e[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        while (b < b_hi && cum[b + 1] <= i0 + j) ++b;
+        e[j] = (T)(base + (unsigned)b);
+      }
+      uint4 w;
+      memcpy(&w, e, sizeof(w));
+      __stcs(out + v, w);
+    }
+  }
+}
+
+// K4.  Replaces pallas_hist.py:_fill_kernel / fill_runs: the sorted carrier
+// from a histogram, hist[b] copies of (T)(base + b) for k <= 4096 buckets.
+// Bound: writing n * sizeof(T) bytes (plus reading 4k).  The TPU kernel
+// paints one output block per grid step from a prefetched start bucket and
+// walks only the run boundaries inside the block; fill_tiles does the same
+// per tile.  The int64 prefix (at most 32.8 KB of shared memory) is built in
+// the kernel from `hist`, so a call is this one launch, and more than 2^31
+// rows cannot overflow it as the TPU version's int32 prefix could.  The grid
+// is one wave, so the blocks' prefix reads stay near 1% of the output bytes
+// at the main path's shapes.  The ragged tail (fewer than 16 bytes), or all
+// of an output that is not 16-byte aligned, goes element by element.
+template <typename T>
+__global__ void fill_runs_kernel(const int* __restrict__ hist, int k,
+                                 long long n, unsigned base, int tile_bytes,
                                  T* __restrict__ out) {
   extern __shared__ __align__(8) unsigned char smem[];
   long long* cum = reinterpret_cast<long long*>(smem);
-  for (int j = threadIdx.x; j <= k; j += blockDim.x) cum[j] = cum_g[j];
-  __syncthreads();
-  paint_runs<T>(cum, k, n, base, (T)0, out);
+  block_prefix(hist, k, cum);
+  constexpr int kPer = 16 / sizeof(T);
+  long long head = 0;
+  if (aligned16(out)) {
+    head = n / kPer * kPer;
+    fill_tiles<T>(cum, k, n / kPer, base, tile_bytes / 16,
+                  reinterpret_cast<uint4*>(out));
+  }
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = head + tid; i < n; i += stride)
+    out[i] = (T)(base + (unsigned)bucket_of(cum, k, i));
 }
 
 // K6.  Replaces the kernel inside scripts/u8_attack.py:fill_runs_packed: the
 // uint8 run fill stored as packed u32 words, four output bytes per word.
 // Output byte i is the bucket b (k <= 256) whose run holds i, so the bytes
-// are hist[b] copies of b: K4's function for uint8 and base 0.  The prefix is
-// int64 where the TPU version's is int32.  Bound: writing n bytes.  Each
-// thread paints whole words, one per grid-stride step: one binary search
-// finds the bucket of the word's first byte and the other three walk forward
-// over the run boundaries they cross.  Words of neighbouring threads are
-// neighbours, so a warp stores 128 contiguous bytes.
-__global__ void fill_runs_packed_kernel(const long long* __restrict__ cum_g,
-                                        int k, long long nwords,
+// are hist[b] copies of b: K4's function for uint8 and base 0, and it runs
+// on K4's core (prefix in the kernel, fill_tiles over 16-byte vectors).
+// Bound: writing n bytes (plus reading 4k).  The tail of fewer than four
+// words goes word by word: one search for the word's first byte, a walk for
+// the other three.
+__global__ void fill_runs_packed_kernel(const int* __restrict__ hist, int k,
+                                        long long nwords, int tile_bytes,
                                         uint32_t* __restrict__ out) {
-  __shared__ long long cum[257];
-  for (int j = threadIdx.x; j <= k; j += blockDim.x) cum[j] = cum_g[j];
-  __syncthreads();
+  extern __shared__ __align__(8) unsigned char smem[];
+  long long* cum = reinterpret_cast<long long*>(smem);
+  block_prefix(hist, k, cum);
+  long long head = 0;
+  if (aligned16(out)) {
+    head = nwords / 4 * 4;
+    fill_tiles<uint8_t>(cum, k, nwords / 4, 0u, tile_bytes / 16,
+                        reinterpret_cast<uint4*>(out));
+  }
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long w = tid; w < nwords; w += stride) {
+  for (long long w = head + tid; w < nwords; w += stride) {
     const long long i0 = w * 4;
     int b = bucket_of(cum, k, i0);
     uint32_t word = 0;
@@ -254,6 +386,34 @@ __global__ void fill_runs_packed_kernel(const long long* __restrict__ cum_g,
     }
     out[w] = word;
   }
+}
+
+// One wave of a persistent grid for a fill of `items` tiles: as many blocks
+// as the SMs hold at once, no more than there are tiles, at least one.
+template <typename K>
+int fill_grid(K kernel, long long items, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                smem);
+  long long blocks = (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  if (blocks > items) blocks = items;
+  return blocks < 1 ? 1 : (int)blocks;
+}
+
+// K4's launch.  `hist` holds k int32 counts; tile_bytes, a positive multiple
+// of 16, is the output tile a block fills at a time.
+template <typename T>
+int launch_fill_runs(const int* hist, int k, long long n, unsigned base,
+                     int tile_bytes, T* out, cudaStream_t s) {
+  const size_t smem = (size_t)(k + 1) * sizeof(long long);
+  const long long tiles =
+      (n * (long long)sizeof(T) + tile_bytes - 1) / tile_bytes;
+  const int grid = fill_grid(fill_runs_kernel<T>, tiles, smem);
+  fill_runs_kernel<T><<<grid, kThreads, smem, s>>>(hist, k, n, base,
+                                                  tile_bytes, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -331,40 +491,33 @@ int srs_fill16(const void* stats, int width, long long n, unsigned flip,
   return (int)cudaGetLastError();
 }
 
-int srs_fill_runs(const void* cum, int k, long long n, unsigned base,
-                  int width, void* out, void* stream) {
+int srs_fill_runs(const void* hist, int k, long long n, unsigned base,
+                  int width, int tile_bytes, void* out, void* stream) {
+  if (k < 1 || k > kMaxFillK || tile_bytes < 16 || tile_bytes % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const long long* c = (const long long*)cum;
-  const int grid = grid_for(n, width);
-  const size_t smem = (size_t)(k + 1) * sizeof(long long);
+  const int* h = (const int*)hist;
   switch (width) {
     case 1:
-      fill_runs_kernel<uint8_t><<<grid, kThreads, smem, s>>>(
-          c, k, n, base, (uint8_t*)out);
-      break;
+      return launch_fill_runs(h, k, n, base, tile_bytes, (uint8_t*)out, s);
     case 2:
-      fill_runs_kernel<uint16_t><<<grid, kThreads, smem, s>>>(
-          c, k, n, base, (uint16_t*)out);
-      break;
+      return launch_fill_runs(h, k, n, base, tile_bytes, (uint16_t*)out, s);
     case 4:
-      fill_runs_kernel<uint32_t><<<grid, kThreads, smem, s>>>(
-          c, k, n, base, (uint32_t*)out);
-      break;
+      return launch_fill_runs(h, k, n, base, tile_bytes, (uint32_t*)out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
-int srs_fill_runs_packed(const void* cum, int k, long long n, void* out,
-                         void* stream) {
-  if (k < 1 || k > 256 || n % 4) return (int)cudaErrorInvalidValue;
-  const long long nwords = n / 4;
-  // width 16 makes grid_for size the grid for one item (here a word) per
-  // thread and step
-  const int grid = grid_for(nwords, 16);
-  fill_runs_packed_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const long long*)cum, k, nwords, (uint32_t*)out);
+int srs_fill_runs_packed(const void* hist, int k, long long n, int tile_bytes,
+                         void* out, void* stream) {
+  if (k < 1 || k > 256 || n % 4 || tile_bytes < 16 || tile_bytes % 16)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(k + 1) * sizeof(long long);
+  const int grid = fill_grid(fill_runs_packed_kernel,
+                             (n + tile_bytes - 1) / tile_bytes, smem);
+  fill_runs_packed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const int*)hist, k, n / 4, tile_bytes, (uint32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -36,8 +36,8 @@ _SIGNATURES = {
     "srs_histogram": (_P, _I, _LL, _U, _I, _P, _P),
     "srs_minmax_hist16": (_P, _I, _LL, _U, _P, _P),
     "srs_fill16": (_P, _I, _LL, _U, _P, _P),
-    "srs_fill_runs": (_P, _I, _LL, _U, _I, _P, _P),
-    "srs_fill_runs_packed": (_P, _I, _LL, _P, _P),
+    "srs_fill_runs": (_P, _I, _LL, _U, _I, _I, _P, _P),
+    "srs_fill_runs_packed": (_P, _I, _LL, _I, _P, _P),
     "srs_partition_count": (_P, _LL, _I, _P, _P),
     "srs_partition_scatter": (_P, _LL, _I, _P, _I, _PP, _PP, _PI, _P),
 }

@@ -17,6 +17,7 @@ kernels read their raw bits as unsigned integers of that width.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..utils import common
@@ -28,6 +29,7 @@ LAUNCHES = {"histogram": 0, "minmax_hist16": 0, "tiny_sort16": 0,
 MAX_HIST_K = 1024   # K1 keeps k int32 counters in shared memory
 MAX_FILL_K = 4096   # K4 keeps k + 1 int64 prefix counts in shared memory
 MAX_PACKED_K = 256  # K6 writes one byte per row
+FILL_TILE_BYTES = 8192  # output bytes a K4/K6 block fills at a time
 _MAX_N = (1 << 31) - 1  # counts are int32, as in the JAX package
 
 
@@ -202,7 +204,8 @@ def tiny_sort16(x: torch.Tensor, flip: int = 0):
 
 def prefix_counts(hist: torch.Tensor) -> torch.Tensor:
     """(k + 1,) int64 exclusive prefix sums of int32 counts, with the total
-    last (cum[0] = 0): int64 so that more than 2^31 rows cannot overflow."""
+    last (cum[0] = 0): int64 so that more than 2^31 rows cannot overflow.
+    The plain fills use it; the kernels build the same prefix themselves."""
     return torch.cat([hist.new_zeros(1, dtype=torch.int64),
                       torch.cumsum(hist, 0, dtype=torch.int64)])
 
@@ -217,9 +220,10 @@ def fill_runs(hist: torch.Tensor, n: int, base: int, dtype) -> torch.Tensor:
     """Expand a histogram into the sorted carrier: the concatenation over b
     of hist[b] copies of (base + b) mod 2^w, as an (n,) tensor of the 1-,
     2- or 4-byte integer `dtype`.  Requires sum(hist) == n; positions past
-    the last run repeat the last bucket."""
+    the last run repeat the last bucket.  On the card this is one launch,
+    which builds the prefix of `hist` itself."""
     dtype = common.torch_dtype(dtype)
-    w = torch.empty((), dtype=dtype).element_size()
+    w = dtype.itemsize
     if dtype.is_floating_point or w not in (1, 2, 4):
         raise TypeError(f"unsupported fill dtype {dtype}")
     if hist.dtype != torch.int32 or hist.dim() != 1:
@@ -230,11 +234,11 @@ def fill_runs(hist: torch.Tensor, n: int, base: int, dtype) -> torch.Tensor:
     base &= _mask(w)
     if not _build.on_cuda(hist):
         return fill_runs_plain(hist, n, base, dtype)
-    cum = prefix_counts(hist)
+    hist = hist.contiguous()
     out = torch.empty(n, dtype=dtype, device=hist.device)
     if n:
-        _launch("fill_runs", "srs_fill_runs", hist.device, cum.data_ptr(), k,
-                n, base, w, out.data_ptr())
+        _launch("fill_runs", "srs_fill_runs", hist.device, hist.data_ptr(),
+                k, n, base, w, FILL_TILE_BYTES, out.data_ptr())
     return out
 
 
@@ -252,7 +256,7 @@ def fill_runs_packed(hist: torch.Tensor, n: int) -> torch.Tensor:
     tensor of hist[b] copies of b for a histogram of at most 256 buckets,
     equal to fill_runs(hist, n, 0, torch.uint8).  n must be a multiple of
     4, as in the JAX version.  Requires sum(hist) == n; positions past the
-    last run repeat the last bucket."""
+    last run repeat the last bucket.  On the card this is one launch."""
     if n % 4:
         raise ValueError(f"n={n} is not a multiple of 4")
     if hist.dtype != torch.int32 or hist.dim() != 1:
@@ -262,9 +266,39 @@ def fill_runs_packed(hist: torch.Tensor, n: int) -> torch.Tensor:
         raise ValueError(f"k={k} outside [1, {MAX_PACKED_K}]")
     if not _build.on_cuda(hist):
         return fill_runs_packed_plain(hist, n)
-    cum = prefix_counts(hist)
+    hist = hist.contiguous()
     out = torch.empty(n, dtype=torch.uint8, device=hist.device)
     if n:
         _launch("fill_runs_packed", "srs_fill_runs_packed", hist.device,
-                cum.data_ptr(), k, n, out.data_ptr())
+                hist.data_ptr(), k, n, FILL_TILE_BYTES, out.data_ptr())
+    return out
+
+
+def tile_edge_cases(width: int, k_max: int = MAX_FILL_K) -> dict:
+    """label -> (hist, n): histograms whose runs meet the edges of the fill
+    kernels' tiles (FILL_TILE_BYTES of output, here in elements of `width`
+    bytes), for holding K4 and K6 against their plain versions.  `hist` is a
+    NumPy int32 array of at most `k_max` buckets.  Every case but "sum below
+    n" has sum(hist) == n."""
+    e = FILL_TILE_BYTES // width
+    rng = np.random.default_rng(width)
+    cuts = sorted({m * e + d for m in (1, 2) for d in (-15, -1, 0, 1, 15)})
+    short = rng.integers(1, 4, k_max)
+    cases = {
+        # run boundaries at the tile edges, and at +-1 and +-15 around them
+        "tile edges": np.diff([0, *cuts, 3 * e + 5]),
+        "one run": np.array([2 * e + 3]),
+        # a boundary every 1-3 elements: many in every vector
+        "k max, short runs": short,
+        # empty buckets before, after and at the tile edges
+        "empty buckets at edges": np.array([0, e - 3, 0, 0, 0, 5, 0, 0,
+                                            e - 2, 0, 0, 9, 0]),
+        "below one tile": np.bincount(rng.integers(0, 7, e // 2 + 3)),
+        # not a multiple of 16 elements
+        "ragged tail": np.bincount(rng.integers(0, 5, 2 * e + 13)),
+    }
+    out = {label: (h.astype(np.int32), int(h.sum()))
+           for label, h in cases.items()}
+    # positions past sum(hist) repeat the last bucket, over whole tiles
+    out["sum below n"] = (np.array([e + 7, 3], np.int32), 3 * e + 5)
     return out

@@ -107,6 +107,30 @@ def test_fill_runs_base_wraps_in_carrier_width():
     assert np.array_equal(got, np.arange(-128, 128, dtype=np.int8))
 
 
+_FILL_BASES = {torch.int8: (0x80, jnp.int8), torch.int16: (0x7FF0, jnp.int16),
+               torch.int32: (-500, jnp.int32), torch.uint8: (0, jnp.uint8)}
+
+
+@pytest.mark.parametrize("dtype", list(_FILL_BASES), ids=str)
+@pytest.mark.parametrize("case", list(cuda_hist.tile_edge_cases(1)))
+def test_fill_runs_tile_edges_match_pallas(case, dtype):
+    """Runs that meet the fill kernels' tile edges (FILL_TILE_BYTES of
+    output, the tile the kernels are launched with): the port's fill equals
+    the Pallas fill; for uint8 the packed fill equals the uint8 fill."""
+    base, jdtype = _FILL_BASES[dtype]
+    hist, n = cuda_hist.tile_edge_cases(dtype.itemsize)[case]
+    got = _np(cuda_hist.fill_runs(_t(hist), n, base, dtype))
+    want = np.asarray(pallas_hist.fill_runs(jnp.asarray(hist), n, base,
+                                            jdtype, interpret=True))
+    assert got.dtype == want.dtype
+    assert np.array_equal(got, want)
+    if dtype == torch.uint8:
+        hist, n = cuda_hist.tile_edge_cases(1, cuda_hist.MAX_PACKED_K)[case]
+        n -= n % 4
+        assert torch.equal(cuda_hist.fill_runs_packed(_t(hist), n),
+                           cuda_hist.fill_runs(_t(hist), n, 0, torch.uint8))
+
+
 @pytest.mark.parametrize("lo,width", [(0, 16), (7, 16), (2**31 - 5, 16),
                                       (2**32 - 16, 16), (123456, 1),
                                       (0, 1)])
