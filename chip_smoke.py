@@ -24,7 +24,24 @@ Phases, each raising on failure:
        (j)     uint8 keys through K1 and K6, the path of
                scripts/u8_attack.py's packed fill.
      (f)-(j) must equal the stable comparison sort of their input byte for
-     byte; (a), (f) and (g) also pass bench.py's checksums.
+     byte; (a), (f) and (g) also pass bench.py's checksums.  Then the
+     query operators over TPC-H scale factor 10 (tpch_tables: 59,986,052
+     lineitems, 15,000,000 orders) and the rank and quick engines, each
+     gated on an answer the code under test does not give
+     (operator_cases):
+       (k)     filter_rows with Q6's predicate: one K5 launch;
+       (l)     group_aggregate, Q1's 4 groups, sum/mean/count of three
+               float64 columns, with max_groups=4 and without;
+       (m)     group_aggregate by l_orderkey (15·10^6 groups);
+       (n)     lookup_join, semi_join, inner_join_expand and
+               merge_join_indices of lineitem and orders;
+       (o)     top_k (k=100) over (a)'s data and over int32 keys with
+               many ties; unique over int32 keys with 1% distinct;
+       (p)     sort(method="quick") at 4·10^6 rows (QUICK_N), stable and
+               not (the blocked path must run); quick_sort.partition;
+               method="rank" at 4096 rows.
+  3b. (k)-(p) again at 10^6 rows, on the CPU and on the card: the outputs
+     must agree (integers exactly, float sums to 1e-12).
   4. times: CUDA events, median of --reps after warm-up, for each kernel
      (kernel, plain version, one library call, bound) and each main-path
      case (rows/s and fraction of the roofline model); one further call of
@@ -77,6 +94,417 @@ MIX = 0x9E3779B97F4A7C15  # odd multiplier of bench.py's pair fingerprint
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# TPC-H (specification v3, section 4.2): scale factor 10 has 15,000,000
+# orders and 59,986,052 lineitems; dates as day numbers since 1970-01-01
+SF10_ORDERS, SF10_LINEITEMS = 15_000_000, 59_986_052
+STARTDATE, ENDDATE = 8035, 10591  # 1992-01-01, 1998-12-31
+CURRENTDATE = 9298  # 1995-06-17
+Q6_FROM, Q6_TO = 8766, 9131  # 1994-01-01, 1995-01-01
+
+
+def tpch_tables(n_orders: int, n_lineitems: int, extra_rows: int,
+                seed: int, device, u64_pair=None):
+    """`orders` and `lineitem` as dbgen shapes them, made from `seed` on
+    `device`, plus the other inputs of cases (o) and (p): `extra_rows`
+    int32 keys with many ties and with 1% distinct values, and u64 keys +
+    u64 payloads (`u64_pair`, else made here).
+
+    o_orderkey is sparse as dbgen makes it (the first 8 of every 32 keys);
+    each order has 1-7 lineitems (nudged to sum to exactly `n_lineitems`),
+    in order-key order.  l_quantity 1-50, l_extendedprice = quantity x a
+    retail price of 900.00-2098.99, l_discount 0.00-0.10, all float64, and
+    kept also as exact integers (units, cents, hundredths) for the gates.
+    l_shipdate is 1-121 days after o_orderdate; l_returnflag x l_linestatus
+    as in Q1 (4 groups: A/F, N/F, N/O, R/F) is the int32 code `l_rfls`."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def ri(lo, hi, size):
+        return torch.randint(lo, hi, (size,), generator=g, device=device)
+
+    t = {}
+    i = torch.arange(n_orders, device=device)
+    t["o_orderkey"] = (i // 8) * 32 + i % 8 + 1
+    t["o_orderdate"] = ri(STARTDATE, ENDDATE - 151 + 1, n_orders).to(
+        torch.int32)
+    t["o_totalprice"] = ri(85_700, 55_558_628, n_orders).double() / 100
+    per = ri(1, 8, n_orders)
+    diff = n_lineitems - int(per.sum())
+    room = torch.nonzero(per < 7 if diff > 0 else per > 1).squeeze(1)
+    per[room[:abs(diff)]] += 1 if diff > 0 else -1
+    if int(per.sum()) != n_lineitems:
+        raise AssertionError("lineitem count")
+    n = n_lineitems
+    t["o_lines"] = per
+    t["l_orderkey"] = torch.repeat_interleave(t["o_orderkey"], per)
+    t["l_orderdate"] = torch.repeat_interleave(t["o_orderdate"], per)
+    t["l_rowid"] = torch.arange(n, device=device)
+    t["qty_units"] = ri(1, 51, n)
+    t["price_cents"] = t["qty_units"] * ri(90_000, 209_900, n)
+    t["disc_hundredths"] = ri(0, 11, n)
+    t["l_quantity"] = t["qty_units"].double()
+    t["l_extendedprice"] = t["price_cents"].double() / 100
+    t["l_discount"] = t["disc_hundredths"].double() / 100
+    ship = t["l_orderdate"] + ri(1, 122, n).to(torch.int32)
+    receipt = ship + ri(1, 31, n).to(torch.int32)
+    t["l_shipdate"] = ship
+    # A/F 0, N/F 1, N/O 2, R/F 3 (Q1's ORDER BY): returnflag N once
+    # received after CURRENTDATE, else A or R; linestatus O once shipped
+    # after it (which makes the flag N)
+    flag = torch.where(receipt > CURRENTDATE, 1, 3 * ri(0, 2, n))
+    t["l_rfls"] = torch.where(ship > CURRENTDATE, 2, flag).to(torch.int32)
+    # (o) and (p)
+    m = extra_rows
+    if u64_pair is None:  # uniform 64-bit patterns from two 32-bit halves
+        u64_pair = [((ri(0, 2**32, m) << 32) | ri(0, 2**32, m)).view(
+            torch.uint64) for _ in range(2)]
+    t["u64"], t["u64_pay"] = u64_pair
+    t["ties"] = ri(0, 1000, m).to(torch.int32)
+    t["uniq"] = ri(0, max(1, m // 100), m).to(torch.int32)
+    t["uniq_row"] = torch.arange(m, dtype=torch.int32, device=device)
+    return t
+
+
+Q6_COLUMNS = ("l_shipdate", "l_quantity", "l_extendedprice", "l_discount")
+
+
+def q6_mask(t):
+    """TPC-H Q6's predicate: shipped in 1994, discount 0.06 +- 0.01,
+    quantity < 24."""
+    return ((t["l_shipdate"] >= Q6_FROM) & (t["l_shipdate"] < Q6_TO)
+            & (t["l_discount"] >= 0.05) & (t["l_discount"] <= 0.07)
+            & (t["l_quantity"] < 24))
+
+
+def flat(out):
+    """The tensors of a nested output, in order."""
+    if not isinstance(out, (tuple, list)):
+        return [out]
+    return [x for o in out for x in flat(o)]
+
+
+# rows of case (p): the quick engine's 1024 buckets average <= its
+# 4096-row target below 4,194,304 rows.  Up to 1024 * BLOCK/2 = 8,388,608
+# it still partitions, but at 8·10^6 the segments average 95% of the
+# blocked cleanup's BLOCK/2 bound and the largest passes it: the anti-skew
+# fallback runs (as on the TPU, with the same constants).
+QUICK_N = 4_000_000
+SMALL_N = 1_000_000  # rows of the CPU-against-card comparison
+
+
+def agree(label, cpu_out, card_out, signed):
+    """The same outputs on the CPU and on the card: integers exactly,
+    floats to the tests' float64 tolerance (sums in another order)."""
+    import torch
+
+    for i, (a, b) in enumerate(zip(flat(cpu_out), flat(card_out),
+                                   strict=True)):
+        b = signed(b).cpu().view(b.dtype)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{label} output {i}: {a.dtype} "
+                                 f"{tuple(a.shape)} on the CPU, {b.dtype} "
+                                 f"{tuple(b.shape)} on the card")
+        if a.dtype.is_floating_point:
+            same = torch.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True)
+        else:
+            same = torch.equal(signed(a), signed(b))
+        if not same:
+            raise AssertionError(f"{label} output {i}: the CPU and the "
+                                 "card differ")
+
+
+def operator_cases(t, quick_n: int):
+    """Cases (k)-(p) over the tables `t`: each (label, engine, rows,
+    run(t), gate(t, out), kernels that must launch, K5 launches, bytes a
+    row, canon(out)).  `gate` holds the output against an answer that the
+    code under test does not give: one known by construction, or other
+    torch calls.  `canon` is what of the output must agree between the CPU
+    and the card (rows past a count are padding; where the port sorts
+    unstably, a sum over pairs stands for their order)."""
+    import torch
+
+    import simd_radix_sort_tpu_torch as srs
+    from simd_radix_sort_tpu_torch.ops import (filter as filt, hashagg,
+                                               hashjoin, quick_sort, topk)
+
+    def signed(x):
+        return x.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[x.element_size()])
+
+    def take(x, idx):
+        return signed(x).index_select(0, idx)
+
+    def eq(label, got, want):
+        if got.shape != want.shape or not torch.equal(signed(got),
+                                                      signed(want)):
+            raise AssertionError(f"{label}: differs from its gate")
+
+    def close(label, got, want):
+        # the tests' float64 tolerance: sums in another order
+        if not torch.allclose(got, want, rtol=1e-12, atol=0):
+            err = ((got - want).abs() / want.abs()).max().item()
+            raise AssertionError(f"{label}: relative error {err}")
+
+    def pair_fp(k, p):
+        return ((signed(k) * 0x7FFFFFFF) ^ signed(p)).sum()
+
+    cases = []
+    q6 = Q6_COLUMNS
+
+    # (k) filter, Q6's predicate
+    def gate_k(t, out):
+        mask = q6_mask(t)
+        sel, rest = (torch.nonzero(mask).squeeze(1),
+                     torch.nonzero(~mask).squeeze(1))
+        if int(out[0]) != sel.numel():
+            raise AssertionError("(k) count")
+        for col, o in zip(q6, out[1:]):
+            eq("(k) " + col, o, torch.cat([take(t[col], sel),
+                                           take(t[col], rest)]))
+
+    cases.append(("k filter_rows Q6", "filter", "l_shipdate",
+                  lambda t: filt.filter_rows(q6_mask(t),
+                                             *(t[c] for c in q6)),
+                  gate_k, ["partition_pass"], 1, 28, lambda out: out))
+
+    # (l) Q1's group-by; (m) by l_orderkey
+    def groupby_ref(t, key, cols):
+        uk, inv, cnt = torch.unique(t[key], sorted=True,
+                                    return_inverse=True, return_counts=True)
+        sums = [torch.zeros(uk.numel(), dtype=torch.int64,
+                            device=uk.device).index_add_(0, inv, t[c])
+                for c in cols]
+        return uk, cnt, sums
+
+    exact = {"l_quantity": ("qty_units", 1), "l_extendedprice":
+             ("price_cents", 100), "l_discount": ("disc_hundredths", 100)}
+
+    def group_gate(label, key, cols, aggs):
+        def gate(t, out):
+            ng, gk, res = out
+            uk, cnt, sums = groupby_ref(t, key, [exact[c][0] for c in cols])
+            g = uk.numel()
+            if int(ng) != g:
+                raise AssertionError(f"{label}: {int(ng)} groups, not {g}")
+            eq(label + " keys", gk[:g], uk)
+            want_sum = [s.double() / exact[c][1] for s, c in zip(sums, cols)]
+            for agg, r in zip(aggs, res):
+                if agg == "count":
+                    eq(label + " count", r[:g], cnt.to(torch.int32))
+                    continue
+                for c, got, s in zip(cols, r, want_sum):
+                    close(f"{label} {agg} {c}", got[:g],
+                          s if agg == "sum" else s / cnt)
+        return gate
+
+    def group_canon(aggs):
+        def canon(out):
+            ng, gk, res = out
+            g = int(ng)
+            return [ng, gk[:g]] + [x[:g] for agg, r in zip(aggs, res)
+                                   for x in ((r,) if agg == "count" else r)]
+        return canon
+
+    q1_cols = ("l_quantity", "l_extendedprice", "l_discount")
+    q1_aggs = ("sum", "mean", "count")
+    for label, kw in (("l Q1 group_aggregate max_groups=4",
+                       {"max_groups": 4}),
+                      ("l Q1 group_aggregate", {})):
+        cases.append((
+            label, "hashagg", "l_rfls",
+            lambda t, kw=kw: hashagg.group_aggregate(
+                t["l_rfls"], tuple(t[c] for c in q1_cols), aggs=q1_aggs,
+                **kw),
+            group_gate("(l)", "l_rfls", q1_cols, q1_aggs), ["partition_pass"],
+            1, 28, group_canon(q1_aggs)))
+    m_cols, m_aggs = ("l_extendedprice",), ("sum", "count")
+    cases.append((
+        "m group_aggregate by l_orderkey", "hashagg", "l_orderkey",
+        lambda t: hashagg.group_aggregate(
+            t["l_orderkey"], (t["l_extendedprice"],), aggs=m_aggs),
+        group_gate("(m)", "l_orderkey", m_cols, m_aggs), ["partition_pass"],
+        1, 16, group_canon(m_aggs)))
+
+    # (n) joins of lineitem and orders
+    def gate_lookup(t, out):
+        found, counts, (date, price) = out
+        if not bool(found.all()) or not bool((counts == 1).all()):
+            raise AssertionError("(n) lookup: a lineitem lost its order")
+        eq("(n) lookup o_orderdate", date, t["l_orderdate"])
+        eq("(n) lookup o_totalprice", price,
+           torch.repeat_interleave(t["o_totalprice"], t["o_lines"]))
+
+    cases.append(("n lookup_join lineitem->orders", "hashjoin", "l_orderkey",
+                  lambda t: hashjoin.lookup_join(
+                      t["l_orderkey"], t["o_orderkey"],
+                      (t["o_orderdate"], t["o_totalprice"])),
+                  gate_lookup, [], 0, 8, lambda out: out))
+
+    def gate_semi(t, out):
+        if int(out[0]) != t["l_orderkey"].numel():
+            raise AssertionError("(n) semi_join count")
+        eq("(n) semi keys", out[1], t["l_orderkey"])
+        eq("(n) semi price", out[2], t["l_extendedprice"])
+
+    cases.append(("n semi_join lineitem in orders", "hashjoin", "l_orderkey",
+                  lambda t: hashjoin.semi_join(
+                      t["l_orderkey"], (t["l_extendedprice"],),
+                      t["o_orderkey"]),
+                  gate_semi, ["partition_pass"], 1, 16, lambda out: out))
+
+    def check_pairs(label, total, ok, n_l):
+        """As many pairs as lineitems, each joining equal keys."""
+        if int(total) != n_l:
+            raise AssertionError(f"{label}: total {int(total)} != {n_l}")
+        if not bool(ok.all()):
+            raise AssertionError(f"{label}: a pair joins different keys")
+
+    def gate_expand(t, out):
+        total, pidx, pk, (pdate,), (rowid,) = out
+        check_pairs("(n) inner_join_expand", total,
+                    take(t["l_orderkey"], rowid) == pk,
+                    t["l_orderkey"].numel())
+        eq("(n) expand probe keys", pk, t["l_orderkey"])
+        eq("(n) expand probe dates", pdate, t["l_orderdate"])
+        eq("(n) expand rows", torch.sort(rowid).values, t["l_rowid"])
+
+    def expand_canon(out):
+        total, pidx, pk, pps, (rowid,) = out
+        return [total, pidx, pk, *pps,
+                torch.sort(pidx.to(torch.int64) * rowid.numel()
+                           + rowid).values]
+
+    cases.append(("n inner_join_expand orders x lineitem", "hashjoin",
+                  "l_orderkey",
+                  lambda t: hashjoin.inner_join_expand(
+                      t["o_orderkey"], (t["o_orderdate"],), t["l_orderkey"],
+                      (t["l_rowid"],), t["l_orderkey"].numel()),
+                  gate_expand, [], 0, 16, expand_canon))
+
+    def gate_merge(t, out):
+        total, pidx, bidx = out
+        check_pairs("(n) merge_join_indices", total,
+                    take(t["o_orderkey"], pidx)
+                    == take(t["l_orderkey"], bidx),
+                    t["l_orderkey"].numel())
+        eq("(n) merge rows", torch.sort(bidx.to(torch.int64)).values,
+           t["l_rowid"])
+
+    cases.append(("n merge_join_indices", "hashjoin", "l_orderkey",
+                  lambda t: hashjoin.merge_join_indices(
+                      (srs.to_sortable(t["o_orderkey"]),),
+                      t["o_orderkey"].numel(),
+                      (srs.to_sortable(t["l_orderkey"]),),
+                      t["l_orderkey"].numel(), t["l_orderkey"].numel()),
+                  gate_merge, ["partition_pass"], 1, 8, lambda out: out))
+
+    # (o) top_k and unique
+    def topk_gate(label, key, pay):
+        def gate(t, out):
+            order = torch.sort(srs.to_sortable(t[key], False),
+                               stable=True).indices[:100]
+            eq(label + " keys", out[0], take(t[key], order))
+            if pay:
+                eq(label + " payload", out[1], take(t[pay], order))
+        return gate
+
+    cases.append(("o top_k k=100 u64+u64", "topk", "u64",
+                  lambda t: topk.top_k(t["u64"], t["u64_pay"], k=100),
+                  topk_gate("(o) top_k u64", "u64", "u64_pay"), [], 0, 16,
+                  lambda out: out))
+    cases.append(("o top_k k=100 int32 ties", "topk", "ties",
+                  lambda t: topk.top_k(t["ties"], t["uniq_row"], k=100),
+                  topk_gate("(o) top_k ties", "ties", "uniq_row"), [], 0, 8,
+                  lambda out: out))
+
+    def gate_unique(t, out):
+        count, ku, first, mult = out
+        uk, inv, cnt = torch.unique(t["uniq"], sorted=True,
+                                    return_inverse=True, return_counts=True)
+        g = uk.numel()
+        if int(count) != g:
+            raise AssertionError("(o) unique count")
+        eq("(o) unique keys", ku[:g], uk)
+        eq("(o) unique multiplicity", mult[:g], cnt.to(torch.int32))
+        want = torch.full((g,), t["uniq"].numel(), dtype=torch.int32,
+                          device=uk.device).scatter_reduce_(
+            0, inv, t["uniq_row"], "amin")
+        eq("(o) unique first rows", first[:g], want)
+
+    cases.append(("o unique int32", "topk", "uniq",
+                  lambda t: topk.unique(t["uniq"], t["uniq_row"]),
+                  gate_unique, ["partition_pass"], 1, 8, lambda out: out))
+
+    # (p) the engines and the pivot partition
+    def quick(t, stable):
+        quick_sort.reset_paths()
+        return srs.sort(t["u64"][:quick_n], t["u64_pay"][:quick_n],
+                        method="quick", stable=stable,
+                        device=t["u64"].device)
+
+    def quick_gate(stable):
+        def gate(t, out):
+            if quick_sort.PATHS["blocked"] != 1:
+                raise AssertionError(f"(p) quick took {quick_sort.PATHS}")
+            k, p = t["u64"][:quick_n], t["u64_pay"][:quick_n]
+            want = srs.sort(k, p, method="xla", stable=True,
+                            device=k.device)
+            eq("(p) quick keys", out[0], want[0])
+            if stable:
+                eq("(p) quick payload", out[1], want[1])
+            elif int(pair_fp(*out)) != int(pair_fp(k, p)):
+                raise AssertionError("(p) quick: a payload left its key")
+        return gate
+
+    for stable in (True, False):
+        cases.append((f"p sort quick stable={stable}", "quick", quick_n,
+                      lambda t, s=stable: quick(t, s), quick_gate(stable),
+                      [], 0, 16,
+                      (lambda out: out) if stable else
+                      (lambda out: [out[0], pair_fp(*out)])))
+
+    def pivot_of(t):
+        return t["u64"][quick_n // 2]
+
+    def gate_partition(t, out):
+        k, p = t["u64"][:quick_n], t["u64_pay"][:quick_n]
+        c = srs.to_sortable(k)
+        le = c <= srs.to_sortable(pivot_of(t).reshape(1))
+        left, right = (torch.nonzero(le).squeeze(1),
+                       torch.nonzero(~le).squeeze(1))
+        order = torch.cat([left, right])
+        eq("(p) partition keys", out[0], take(k, order))
+        eq("(p) partition payload", out[1][0], take(p, order))
+        if int(out[2]) != left.numel():
+            raise AssertionError("(p) partition split")
+        ends = torch.sort(c).values
+        eq("(p) partition kmin", srs.to_sortable(out[3].reshape(1)),
+           ends[:1])
+        eq("(p) partition kmax", srs.to_sortable(out[4].reshape(1)),
+           ends[-1:])
+
+    cases.append(("p quick_sort.partition u64+u64", "quick", quick_n,
+                  lambda t: quick_sort.partition(
+                      t["u64"][:quick_n], (t["u64_pay"][:quick_n],),
+                      pivot_of(t)),
+                  gate_partition, ["partition_pass"], 1, 16,
+                  lambda out: out))
+
+    def gate_rank(t, out):
+        want = srs.sort(t["u64"][:4096], t["u64_pay"][:4096], method="xla",
+                        stable=True, device=t["u64"].device)
+        eq("(p) rank keys", out[0], want[0])
+        eq("(p) rank payload", out[1], want[1])
+
+    cases.append(("p sort rank n=4096", "rank", 4096,
+                  lambda t: srs.sort(t["u64"][:4096], t["u64_pay"][:4096],
+                                     method="rank", device=t["u64"].device),
+                  gate_rank, [], 0, 16, lambda out: out))
+    return cases
 
 
 def main() -> int:
@@ -536,6 +964,20 @@ def main() -> int:
     stable_case("j uint8 Uniform K1+K6", "K1+K6", kj, (), True,
                 lambda: (ch.fill_runs_packed(ch.histogram(kj, 256), n4),),
                 ["histogram", "fill_runs_packed"], stream_roofline(1))
+    # (k)-(p): the query operators over TPC-H SF10 and the rank and quick
+    # engines; top_k and quick reuse (a)'s u64 keys and payloads
+    quick_n = min(QUICK_N, n)
+    tables = tpch_tables(SF10_ORDERS, SF10_LINEITEMS, n, args.seed, dev,
+                         u64_pair=(k64, p64))
+    k5_launches = {}
+    for (label, engine, rows, run, gate, expect, k5, row_bytes,
+         _) in operator_cases(tables, quick_n):
+        rows = tables[rows].numel() if isinstance(rows, str) else rows
+        cases.append((label, engine, rows,
+                      lambda run=run: run(tables),
+                      lambda out, gate=gate: gate(tables, out), expect,
+                      stream_roofline(row_bytes)))
+        k5_launches[label] = k5
     del keys, keys8
     log(f"phase 3: data made in {time.perf_counter() - t0:.1f} s")
 
@@ -570,8 +1012,44 @@ def main() -> int:
         if r["launches"].get("partition_pass") != bits:
             raise AssertionError(f"({case}) launched {r['launches']}, "
                                  f"expected {bits} K5 passes")
+    for r in results:  # one K5 pass per compaction or pivot partition
+        want = k5_launches.get(r["case"])
+        if want is not None and r["launches"].get("partition_pass",
+                                                  0) != want:
+            raise AssertionError(f"({r['case']}) launched {r['launches']}, "
+                                 f"expected {want} K5 passes")
     main_launches = {name: sum(r["launches"].get(name, 0) for r in results)
                      for name in TPU_KERNELS}
+
+    # ---- phase 3b: (k)-(p) at 10^6 rows on the CPU and on the card --------
+    t0 = time.perf_counter()
+    small = tpch_tables(SMALL_N // 4, SMALL_N, SMALL_N, args.seed, "cpu")
+    small_dev = {k: signed(v).to(dev).view(v.dtype) for k, v in small.items()}
+    agreed = []
+    for on_cpu, on_card in zip(operator_cases(small, SMALL_N),
+                               operator_cases(small_dev, SMALL_N)):
+        label, run, gate, canon = (on_cpu[0], on_cpu[3], on_cpu[4],
+                                   on_cpu[8])
+        out_cpu = run(small)
+        gate(small, out_cpu)
+        out_card = on_card[3](small_dev)
+        gate(small_dev, out_card)
+        agree(label, canon(out_cpu), canon(out_card), signed)
+        agreed.append(label)
+    # torch.searchsorted on 1- and 2-byte carriers: the quick engine's
+    # bucket ids and a join's probes
+    from simd_radix_sort_tpu_torch.ops import hashjoin
+    for dt in (torch.int8, torch.int16):
+        keys = {d: small_t["ties"].to(dt) for d, small_t in
+                (("cpu", small), ("cuda", small_dev))}
+        outs = {d: (srs.sort(k, method="quick", device=k.device),
+                    hashjoin.lookup_join(k, k[:1000])[:2])
+                for d, k in keys.items()}
+        agree(f"narrow {dt}", outs["cpu"], outs["cuda"], signed)
+        agreed.append(f"narrow {dt}")
+    del small, small_dev
+    log(f"phase 3b: {len(agreed)} cases agree between the CPU and the card "
+        f"at {SMALL_N} rows in {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: kernel times at the main paths' shapes -------------------
     del cases, kh, ph, ki, pi, kj
@@ -586,15 +1064,19 @@ def main() -> int:
     part_mask = randint(0, 2, n) == 1
     u8_values = torch.arange(256, device=dev).to(torch.uint8)
 
+    q6_streams = [tables[c] for c in Q6_COLUMNS]
+    q6_keep = ~q6_mask(tables)  # K5 puts mask=False rows first
+    n_q6 = q6_keep.numel()
+
     def bound(nbytes, ops):
         t_bytes = roofline.bound_ms(nbytes, chip)
         t_ops = ops / PEAK_OPS * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
-    def argsort_gather():
-        order = torch.argsort(part_mask, stable=True)
-        return [s.index_select(0, order) for s in part]
+    def argsort_gather(streams, mask):
+        order = torch.argsort(mask, stable=True)
+        return [signed(s).index_select(0, order) for s in streams]
 
     # (name, shape, kernel, plain, library call, its description, bytes,
     # operations)
@@ -640,9 +1122,17 @@ def main() -> int:
          "2 x int64 streams n=%d, random mask (one pass of case g)" % n,
          lambda: cp.partition_pass(part, part_mask),
          lambda: cp.partition_pass_plain(part, part_mask),
-         argsort_gather,
+         lambda: argsort_gather(part, part_mask),
          "argsort(mask, stable=True) + one index_select per stream",
          33 * n, n),
+        # the Q6 filter's pass (case k): an int32 and three float64 streams
+        ("partition_pass",
+         "int32 + 3 x float64 streams n=%d, Q6 mask (case k)" % n_q6,
+         lambda: cp.partition_pass(q6_streams, q6_keep),
+         lambda: cp.partition_pass_plain(q6_streams, q6_keep),
+         lambda: argsort_gather(q6_streams, q6_keep),
+         "argsort(mask, stable=True) + one index_select per stream",
+         57 * n_q6, n_q6),
         ("fill_runs_packed", "uint8 n=%d k=256 (case j)" % n4,
          lambda: ch.fill_runs_packed(h256u, n4),
          lambda: ch.fill_runs_packed_plain(h256u, n4),
@@ -727,7 +1217,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "n": n, "seed": args.seed,
               "kernels": kernels, "kernel_timings": timings,
               "fill_tile_sweep": tile_sweep,
-              "main_path": results,
+              "main_path": results, "cpu_card_agree": agreed,
               "seconds": time.perf_counter() - t_start}
     if args.out:
         with open(args.out, "w") as f:

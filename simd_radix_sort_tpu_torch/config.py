@@ -9,8 +9,8 @@ from __future__ import annotations
 
 import dataclasses
 
-# Base-case block size of the quick engine; None keeps each engine's own
-# default.  No ported engine reads it yet.
+# Base-case block size of the quick engine (and the quickseq model's
+# threshold); None keeps each engine's own default.
 DEFAULT_BLOCK_THRESHOLD = None
 
 # LSD digit width of the radix engine; None keeps the per-key-width

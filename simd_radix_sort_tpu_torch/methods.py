@@ -11,6 +11,11 @@ Ported methods:
               stable torch.sort per 16- or 32-bit digit
   * "count" — counting / histogram sort on the CUDA kernels
               (ops/counting.py), keys-only integer keys of <= 32 bits
+  * "rank"  — stable O(n^2) rank sort for n <= 4096 (ops/rank_sort.py)
+  * "quick" — device quicksort: sampled-splitter multiway partition +
+              batched block sorts (ops/quick_sort.sort_arrays)
+  * "quickseq" — host model with the reference's exact pivot/recursion
+              semantics (ops/quick_sort.sort_np)
   * "seq"   — host NumPy stable-argsort model (differential baseline)
 Special selector: "auto" (static policy).  The JAX package's other names
 raise ValueError until they are ported.
@@ -64,12 +69,47 @@ def _count_supports(key_dtype, payload_dtypes, n) -> bool:
     return counting.supports(key_dtype, payload_dtypes, n)
 
 
-def _run_seq(keys, payloads, *, ascending=True, stable=False,
-             block_threshold=None, digit_bits=None):
-    host = [interop.to_numpy(t) for t in (keys, *payloads)]
-    out = transforms.sort_np(host[0], *host[1:], ascending=ascending)
-    back = [interop.from_numpy(a, keys.device) for a in out]
-    return back[0], tuple(back[1:])
+def _run_rank(keys, payloads, *, ascending=True, stable=False,
+              block_threshold=None, digit_bits=None):
+    from .ops import rank_sort
+    return rank_sort.sort_arrays(keys, payloads, ascending=ascending)
+
+
+def _rank_supports(key_dtype, payload_dtypes, n) -> bool:
+    from .ops import rank_sort
+    return n is None or n <= rank_sort.MAX_RANK_SORT_N
+
+
+def _run_quick(keys, payloads, *, ascending=True, stable=False,
+               block_threshold=None, digit_bits=None):
+    from .ops import quick_sort
+    return quick_sort.sort_arrays(keys, payloads, ascending=ascending,
+                                  stable=stable,
+                                  block_threshold=block_threshold)
+
+
+def _host_method(sort_fn, takes_threshold: bool = False):
+    """Adapter for a host-side engine: the tensors go to NumPy, `sort_fn`
+    sorts them there, and the results come back to the keys' device."""
+    def run(keys, payloads, *, ascending=True, stable=False,
+            block_threshold=None, digit_bits=None):
+        host = [interop.to_numpy(t) for t in (keys, *payloads)]
+        kw = ({"threshold": block_threshold}
+              if takes_threshold and block_threshold is not None else {})
+        out = sort_fn(host[0], *host[1:], ascending=ascending, **kw)
+        back = [interop.from_numpy(a, keys.device) for a in out]
+        return back[0], tuple(back[1:])
+    return run
+
+
+def _run_seq(keys, payloads, **kw):
+    return _host_method(transforms.sort_np)(keys, payloads, **kw)
+
+
+def _run_quickseq(keys, payloads, **kw):
+    from .ops import quick_sort
+    return _host_method(quick_sort.sort_np,
+                        takes_threshold=True)(keys, payloads, **kw)
 
 
 REGISTRY: dict[str, SortMethod] = {}
@@ -81,12 +121,15 @@ def register(method: SortMethod):
 
 register(SortMethod("xla", _run_xla, _supports_all))
 register(SortMethod("radix", _run_radix, _supports_all))
+register(SortMethod("rank", _run_rank, _rank_supports))
 register(SortMethod("count", _run_count, _count_supports))
+register(SortMethod("quick", _run_quick, _supports_all, has_threshold=True))
+register(SortMethod("quickseq", _run_quickseq, _supports_all,
+                    has_threshold=True, device=False))
 register(SortMethod("seq", _run_seq, _supports_all, device=False))
 
 # Names the JAX package registers that have no port yet.
-NOT_YET_PORTED = ("rank", "quick", "quickseq", "torch", "cpp",
-                  "autotune")
+NOT_YET_PORTED = ("torch", "cpp", "autotune")
 
 # Engine crossovers of the static "auto" policy: the JAX package's values
 # (methods.py:191-194), measured on a TPU.  They are placeholders here until

@@ -151,5 +151,19 @@ def test_roofline_picks_the_h100_part_by_name():
 
 def test_public_surface_mirrors_the_jax_package():
     assert set(tsrs.__all__) == set(jsrs.__all__)
-    assert set(tsrs.SORT_METHODS) == {"xla", "radix", "count", "seq"}
+    assert set(tsrs.SORT_METHODS) == {"xla", "radix", "count", "rank",
+                                      "quick", "quickseq", "seq"}
     assert os.path.basename(tsrs.__file__) == "__init__.py"
+
+
+@pytest.mark.parametrize("name,ported", [
+    ("rank", True), ("quick", True), ("quickseq", True),
+    ("torch", False), ("cpp", False), ("autotune", False)])
+def test_which_jax_methods_are_ported(name, ported):
+    keys = np.arange(8, dtype=np.int32)[::-1].copy()
+    if ported:
+        out = tsrs.sort(keys, method=name, device="cpu")
+        assert np.array_equal(interop.to_numpy(out), np.arange(8))
+    else:
+        with pytest.raises(ValueError, match="not yet ported"):
+            tsrs.sort(keys, method=name, device="cpu")
