@@ -48,6 +48,24 @@ Phases, each raising on failure:
      each under torch.profiler gives device time by kernel and the
      device's idle share of the call.  K4 and K6 are also timed at tiles
      of 4-64 KiB, and each of their calls must be one kernel on the card.
+  5. the distributed tier (simd_radix_sort_tpu_torch/parallel/) on P NCCL
+     ranks, one card each, P the largest of 1, 2, 4 that the machine has
+     (P = 1 runs in this process, P > 1 in spawned ones), each rank making
+     phase 3's data from --seed (distributed_phase, distributed_cases):
+       (q)     distributed_sort of (a)'s data, final_mode "sort" and
+               "blocked";
+       (r)     distributed_sort_multi, ORDER BY l_shipdate, l_orderkey DESC
+               with l_extendedprice;
+       (s)     distributed_filter, Q6;
+       (t)     distributed_group_aggregate, Q1's groups and l_orderkey's;
+       (u)     distributed_join of lineitem and orders, uniform and with
+               one order's key on every fourth lineitem (the hot path);
+       (v)     distributed_top_k (k=100) and distributed_unique;
+     each gated on the whole result (gather_*) against single-card torch
+     calls, then timed and profiled (NCCL device time, host reads of split
+     sizes, K5 launches, which join the kernels line's counts); then the
+     same cases at 10^6 rows on a Gloo group on the CPU and on the NCCL
+     group on the card, which must agree.
 
 Prints one {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -58,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import socket
 import statistics
 import subprocess
 import sys
@@ -185,6 +204,92 @@ def flat(out):
     if not isinstance(out, (tuple, list)):
         return [out]
     return [x for o in out for x in flat(o)]
+
+
+def signed(t):
+    """The same-width signed view of a tensor."""
+    import torch
+
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def wrap64(x: int) -> int:
+    return (int(x) + 2**63) % 2**64 - 2**63
+
+
+def xor_reduce(t) -> int:
+    import torch
+
+    while t.numel() > 1:
+        if t.numel() % 2:
+            t = torch.cat([t, t.new_zeros(1)])
+        h = t.numel() // 2
+        t = t[:h] ^ t[h:]
+    return int(t.item())
+
+
+def device_checksums(out):
+    """bench.py's gate on the card: the sum and xor of the keys and of the
+    key-payload pair fingerprint, mod 2^64 (independent of row order)."""
+    ko, po = (signed(t) for t in out)
+    pair = (ko * wrap64(MIX)) ^ po
+    return (int(ko.sum().item()), xor_reduce(ko),
+            int(pair.sum().item()), xor_reduce(pair))
+
+
+def time_calls(fn, reps: int, warmup: int = 2) -> float:
+    """Median ms of `reps` calls of `fn`, each between CUDA events, after
+    `warmup` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def profile_call(fn, kernels=()):
+    """One call under torch.profiler after a warm-up: its wall time (CUDA
+    events, profiler on) and the device time of every kernel, memset or
+    copy it issued, by name.  The trace at times comes back without some
+    device events, so it is taken again (at most three times) until every
+    wrapper in `kernels` shows its CUDA functions; if none is complete, the
+    device times are {}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    want = [f for k in kernels for f in KERNEL_FUNCTIONS[k]]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+        per = {}
+        for ev in prof.events():
+            # "nccl:..." events are NCCL's annotations of its own kernels
+            if ev.device_type == torch.autograd.DeviceType.CUDA and \
+                    not ev.name.startswith("nccl:"):
+                per[ev.name] = (per.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us() / 1e3)
+        if per and all(any(f in k for k in per) for f in want):
+            return s.elapsed_time(e), per
+    return s.elapsed_time(e), {}
 
 
 # rows of case (p): the quick engine's 1024 buckets average <= its
@@ -507,6 +612,334 @@ def operator_cases(t, quick_n: int):
     return cases
 
 
+def distributed_cases(t, world: int, group, device):
+    """Cases (q)-(v), the distributed tier (simd_radix_sort_tpu_torch/
+    parallel/) on `world` ranks over the tables `t`, which every rank holds
+    whole (the entries keep the rank's block of rows): each (label, rows,
+    run(), gate(out), K5 launches at P = 1, canon(out)).  Each gate
+    assembles the whole result on every rank (gather_*) and holds it
+    against single-card torch calls on the whole input; `canon` is what
+    must agree between the CPU and the card."""
+    import torch
+
+    import simd_radix_sort_tpu_torch as srs
+    from simd_radix_sort_tpu_torch import parallel as par
+
+    kw = {"group": group, "device": device}
+    n_l = t["l_orderkey"].numel()
+    cases = []
+
+    def take(x, idx):
+        return signed(x).index_select(0, idx)
+
+    def eq(label, got, want):
+        if got.shape != want.shape or not torch.equal(signed(got),
+                                                      signed(want)):
+            raise AssertionError(f"{label}: differs from its gate")
+
+    def close(label, got, want):
+        if not torch.allclose(got, want, rtol=1e-12, atol=0):
+            err = ((got - want).abs() / want.abs()).max().item()
+            raise AssertionError(f"{label}: relative error {err}")
+
+    def no_overflow(label, ov):
+        if int(ov.max()):
+            raise AssertionError(f"{label}: overflow flagged")
+
+    def pair_fp(k, p):
+        return ((signed(k) * 0x7FFFFFFF) ^ signed(p)).sum()
+
+    # (q) the splitter sort of (a)'s data; gate: torch.sort, (a)'s checksums
+    k64, p64 = t["u64"], t["u64_pay"]
+
+    def q_gather(out):
+        gk, (gp,) = par.gather_result(out[0], out[1], out[2], group)
+        return gk, gp
+
+    def q_canon(out):
+        gk, gp = q_gather(out)
+        return [gk, pair_fp(gk, gp)]
+
+    def q_gate(label):
+        def gate(out):
+            no_overflow(label, out[3])
+            gk, gp = q_gather(out)
+            eq(label + " keys", gk, srs.sort(k64, method="xla",
+                                             device=k64.device))
+            if device_checksums((gk, gp)) != device_checksums((k64, p64)):
+                raise AssertionError(f"{label}: checksums differ")
+        return gate
+
+    for mode in ("sort", "blocked"):
+        label = f"q distributed_sort final_mode={mode} u64+u64"
+        cases.append((
+            label, k64.numel(),
+            lambda mode=mode: par.distributed_sort(k64, p64, final_mode=mode,
+                                                   **kw),
+            q_gate(label), 0, q_canon))
+
+    # (r) ORDER BY l_shipdate, l_orderkey DESC carrying l_extendedprice;
+    # gate: sort_multi(stable=True) column by column (the payload exactly
+    # at P = 1, where the distributed sort is stable; else by fingerprint)
+    cols = (t["l_shipdate"], t["l_orderkey"])
+    price = t["l_extendedprice"]
+
+    def r_gather(out):
+        return par.gather_result_multi(out[0], out[1], out[2], group)
+
+    def r_canon(out):
+        (g1, g2), (gp,) = r_gather(out)
+        return [g1, g2, pair_fp(g2, gp)]
+
+    def r_gate(out):
+        no_overflow("(r)", out[3])
+        (g1, g2), (gp,) = r_gather(out)
+        (w1, w2), (wp,) = srs.sort_multi(cols, price, ascending=(True, False),
+                                         stable=True, device=price.device)
+        eq("(r) l_shipdate", g1, w1)
+        eq("(r) l_orderkey", g2, w2)
+        if world == 1:
+            eq("(r) l_extendedprice", gp, wp)
+        elif int(pair_fp(g2, gp)) != int(pair_fp(w2, wp)):
+            raise AssertionError("(r) a payload left its row")
+
+    cases.append((
+        "r distributed_sort_multi l_shipdate,l_orderkey desc", n_l,
+        lambda: par.distributed_sort_multi(cols, price,
+                                           ascending=(True, False), **kw),
+        r_gate, 0, r_canon))
+
+    # (s) Q6's filter; gate as (k), on the gathered rows
+    mask = q6_mask(t)
+
+    def s_gather(out):
+        gk, gp = par.gather_filtered(*out, group=group)
+        return [gk, *gp]
+
+    def s_gate(out):
+        got = s_gather(out)
+        sel = torch.nonzero(mask).squeeze(1)
+        if got[0].numel() != sel.numel():
+            raise AssertionError("(s) count")
+        for col, o in zip(Q6_COLUMNS, got):
+            eq("(s) " + col, o, take(t[col], sel))
+
+    cases.append(("s distributed_filter Q6", n_l,
+                  lambda: par.distributed_filter(
+                      mask, *(t[c] for c in Q6_COLUMNS), **kw),
+                  s_gate, 1, s_gather))
+
+    # (t) Q1's groups and l_orderkey's; gate: torch.unique + index_add_ of
+    # the exact integer cents
+    def t_gate(label, key, aggs):
+        def gate(out):
+            ng, gk, res = out
+            uk, inv, cnt = torch.unique(t[key], sorted=True,
+                                        return_inverse=True,
+                                        return_counts=True)
+            cents = torch.zeros(uk.numel(), dtype=torch.int64,
+                                device=uk.device).index_add_(
+                0, inv, t["price_cents"])
+            if ng != uk.numel():
+                raise AssertionError(f"{label}: {ng} groups, not "
+                                     f"{uk.numel()}")
+            eq(label + " keys", gk, uk)
+            for agg, r in zip(aggs, res):
+                if agg == "count":
+                    eq(label + " count", r, cnt.to(torch.int32))
+                else:
+                    want = cents.double() / 100
+                    close(f"{label} {agg}", r,
+                          want if agg == "sum" else want / cnt)
+        return gate
+
+    for label, key, aggs in (
+            ("t Q1 distributed_group_aggregate", "l_rfls",
+             ("sum", "mean", "count")),
+            ("t distributed_group_aggregate by l_orderkey", "l_orderkey",
+             ("sum", "count"))):
+        cases.append((
+            label, n_l,
+            lambda key=key, aggs=aggs: par.distributed_group_aggregate(
+                t[key], price, aggs, **kw),
+            t_gate(label, key, aggs), 2,
+            lambda out: [torch.tensor(out[0]), out[1], *out[2]]))
+
+    # (u) lineitem x orders, uniform and with one order's key on every
+    # fourth lineitem (hot: flagged by the sample, joined by broadcast);
+    # gate: every lineitem matched once, its order's payload as a
+    # searchsorted lookup finds it
+    okey = t["o_orderkey"]
+    build = (t["o_orderdate"], t["o_totalprice"])
+    hot = t["l_orderkey"].clone()
+    hot[::4] = okey[okey.numel() // 3]
+    cap_out = min(2 * n_l // world, n_l)
+
+    def u_gather(out):
+        gk, (rowid,), (date, tprice) = par.gather_joined(
+            out[0], out[1], out[2], out[3], group)
+        order = torch.argsort(rowid)
+        return [x.index_select(0, order) for x in (gk, rowid, date, tprice)]
+
+    def u_gate(label, keys, is_hot):
+        def gate(out):
+            no_overflow(label, out[4])
+            gk, rowid, date, tprice = u_gather(out)
+            eq(label + " rows", rowid, t["l_rowid"])
+            eq(label + " keys", gk, keys)
+            at = torch.searchsorted(okey, gk)
+            eq(label + " o_orderdate", date, take(build[0], at))
+            eq(label + " o_totalprice", tprice, take(build[1], at))
+            if is_hot and int(out[5]["hot_key_slots_flagged"]) < 1:
+                raise AssertionError(f"{label}: no hot key flagged")
+        return gate
+
+    for label, keys, extra in (
+            ("u distributed_join uniform", t["l_orderkey"], {}),
+            ("u distributed_join hot key", hot, {"hot_min_count": 16})):
+        cases.append((
+            label, n_l + okey.numel(),
+            lambda keys=keys, extra=extra: par.distributed_join(
+                keys, (t["l_rowid"],), okey, build,
+                out_rows_per_device=cap_out, return_hot_stats=True,
+                **extra, **kw),
+            u_gate(label, keys, bool(extra)), 5,
+            lambda out: [*u_gather(out),
+                         out[5]["hot_key_slots_flagged"]]))
+
+    # (v) top_k of (a)'s data; unique of 1%-distinct int32 keys; gates as
+    # (o)
+    def v_topk_gate(out):
+        order = torch.sort(srs.to_sortable(k64, False),
+                           stable=True).indices[:100]
+        eq("(v) top_k keys", out[0], take(k64, order))
+        eq("(v) top_k payload", out[1], take(p64, order))
+
+    cases.append(("v distributed_top_k k=100 u64+u64", k64.numel(),
+                  lambda: par.distributed_top_k(k64, p64, k=100, **kw),
+                  v_topk_gate, 0, list))
+
+    def v_unique_gate(out):
+        ng, gk, mult = out
+        uk, cnt = torch.unique(t["uniq"], sorted=True, return_counts=True)
+        if ng != uk.numel():
+            raise AssertionError("(v) unique count")
+        eq("(v) unique keys", gk, uk)
+        eq("(v) unique multiplicity", mult, cnt.to(torch.int32))
+
+    cases.append(("v distributed_unique int32", t["uniq"].numel(),
+                  lambda: par.distributed_unique(t["uniq"], **kw),
+                  v_unique_gate, 2,
+                  lambda out: [torch.tensor(out[0]), out[1], out[2]]))
+    return cases
+
+
+def distributed_phase(rank: int, world: int, port: int, n: int, seed: int,
+                      reps: int, out_path=None):
+    """Phase 5 on rank `rank` of `world`, one card per rank: an NCCL group
+    (tcp://localhost:port), cases (q)-(v) at full size (--n rows and TPC-H
+    SF10, made from --seed on this rank's card), each driven once with the
+    launch and host-read counts set to 0 just before it, then timed and
+    profiled; then the same cases at 10^6 rows through a Gloo group of the
+    same ranks on the CPU and the NCCL group on the card, which must agree.
+    Returns rank 0's record (and writes it to `out_path` when given)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from simd_radix_sort_tpu_torch.ops import cuda_hist as ch
+    from simd_radix_sort_tpu_torch.ops import cuda_partition as cp
+    from simd_radix_sort_tpu_torch.parallel import dist_sort as ds
+    from simd_radix_sort_tpu_torch.utils import data as D, interop
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world, device_id=dev)
+    try:
+        gloo = dist.new_group(backend="gloo")
+        t0 = time.perf_counter()
+        keys = D.make_keys(n, np.uint64, D.Distribution.UNIFORM, seed)
+        (pay,) = D.make_payloads(keys, [np.uint64])
+        pair = (interop.from_numpy(keys, dev), interop.from_numpy(pay, dev))
+        del keys, pay
+        tables = tpch_tables(SF10_ORDERS, SF10_LINEITEMS, n, seed, dev,
+                             u64_pair=pair)
+        if rank == 0:
+            log(f"phase 5: {world} NCCL rank(s), NCCL "
+                f"{'.'.join(map(str, torch.cuda.nccl.version()))}; data "
+                f"made in {time.perf_counter() - t0:.1f} s")
+        results = []
+        for (label, rows, run, gate, k5, _) in distributed_cases(
+                tables, world, None, dev):
+            ch.reset_launches()
+            cp.reset_launches()
+            ds.reset_host_reads()
+            out = run()
+            torch.cuda.synchronize()
+            launches = {**ch.LAUNCHES, **cp.LAUNCHES}
+            host_reads = ds.HOST_READS["split_sizes"]
+            gate(out)
+            del out
+            if launches["partition_pass"] < (k5 > 0) or (
+                    world == 1 and launches["partition_pass"] != k5):
+                raise AssertionError(f"{label}: {launches} K5 launches, "
+                                     f"expected {k5}")
+            ms = time_calls(run, max(5, reps // 2))
+            wall, per = profile_call(run, ["partition_pass"] if k5 else [])
+            busy = sum(per.values())
+            nccl = sum(v for k, v in per.items() if "nccl" in k.lower())
+            top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+            res = {"case": label, "ranks": world, "n": rows, "ms": ms,
+                   "rows_per_s": rows / (ms / 1e3),
+                   "launches": {k: v for k, v in launches.items() if v},
+                   "split_size_host_reads": host_reads,
+                   "trace": {"wall_ms_profiled": wall,
+                             "device_busy_ms": busy,
+                             "nccl_device_ms": nccl if per else None,
+                             "idle_share": 1 - busy / ms if per else None,
+                             "top": [[k[:90], v] for k, v in top]}}
+            results.append(res)
+            if rank == 0:
+                log(f"phase 5: {json.dumps(res)}")
+        del tables, pair
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        small = tpch_tables(SMALL_N // 4, SMALL_N, SMALL_N, seed, "cpu")
+        small_dev = {k: signed(v).to(dev).view(v.dtype)
+                     for k, v in small.items()}
+        agreed = []
+        for on_cpu, on_card in zip(
+                distributed_cases(small, world, gloo, "cpu"),
+                distributed_cases(small_dev, world, None, dev)):
+            out_cpu = on_cpu[2]()
+            on_cpu[3](out_cpu)
+            out_card = on_card[2]()
+            on_card[3](out_card)
+            agree(on_cpu[0], on_cpu[5](out_cpu), on_card[5](out_card),
+                  signed)
+            agreed.append(on_cpu[0])
+        if rank == 0:
+            log(f"phase 5: {len(agreed)} distributed cases agree between "
+                f"the CPU (Gloo) and the card (NCCL) at {SMALL_N} rows in "
+                f"{time.perf_counter() - t0:.1f} s")
+        record = {"ranks": world,
+                  "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+                  "cases": results, "cpu_card_agree": agreed}
+        if out_path is not None and rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(record, f)
+        return record
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000)
@@ -517,7 +950,6 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -576,10 +1008,6 @@ def main() -> int:
         if a.shape != b.shape:
             raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
         return int((a - b).abs().max().item()) if a.numel() else 0
-
-    def signed(t):
-        return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
-                       8: torch.int64}[t.element_size()])
 
     errs = {name: 0 for name in TPU_KERNELS}
     checks = {name: 0 for name in TPU_KERNELS}
@@ -732,47 +1160,9 @@ def main() -> int:
 
     # ---- phase 3: main paths ------------------------------------------------
     def time_ms(fn, reps=args.reps, warmup=2):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        return statistics.median(times)
+        return time_calls(fn, reps, warmup)
 
-    def device_profile(fn, kernels=()):
-        """One call under torch.profiler after a warm-up: its wall time
-        (CUDA events, profiler on) and the device time of every kernel,
-        memset or copy it issued, by name.  The trace at times comes back
-        without some device events, so it is taken again (at most three
-        times) until every wrapper in `kernels` shows its CUDA functions;
-        if none is complete, the device times are {}."""
-        fn()
-        torch.cuda.synchronize()
-        want = [f for k in kernels for f in KERNEL_FUNCTIONS[k]]
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                fn()
-                e.record()
-                e.synchronize()
-            per = {}
-            for ev in prof.events():
-                if ev.device_type == torch.autograd.DeviceType.CUDA:
-                    per[ev.name] = (per.get(ev.name, 0.0)
-                                    + ev.time_range.elapsed_us() / 1e3)
-            if per and all(any(f in k for k in per) for f in want):
-                return s.elapsed_time(e), per
-        return s.elapsed_time(e), {}
+    device_profile = profile_call
 
     def count_launches(fn):
         ch.reset_launches()
@@ -780,17 +1170,6 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         return out, {**ch.LAUNCHES, **cp.LAUNCHES}
-
-    def wrap64(x: int) -> int:
-        return (int(x) + 2**63) % 2**64 - 2**63
-
-    def xor_reduce(t) -> int:
-        while t.numel() > 1:
-            if t.numel() % 2:
-                t = torch.cat([t, t.new_zeros(1)])
-            h = t.numel() // 2
-            t = t[:h] ^ t[h:]
-        return int(t.item())
 
     def bench_checksums(keys, pay):
         """bench.py's gate on the host input: key sum and xor, and the sum
@@ -801,12 +1180,6 @@ def main() -> int:
                     wrap64(np.bitwise_xor.reduce(keys)),
                     wrap64(pair_in.sum(dtype=np.uint64)),
                     wrap64(np.bitwise_xor.reduce(pair_in)))
-
-    def device_checksums(out):
-        ko, po = (signed(t) for t in out)
-        pair = (ko * wrap64(MIX)) ^ po
-        return (int(ko.sum().item()), xor_reduce(ko),
-                int(pair.sum().item()), xor_reduce(pair))
 
     def as_tuple(out):
         if isinstance(out, torch.Tensor):
@@ -1194,6 +1567,28 @@ def main() -> int:
     for t in tile_sweep:
         log(f"phase 4: tile sweep {json.dumps(t)}")
 
+    # ---- phase 5: the distributed tier --------------------------------------
+    # each rank makes its own data; this process's tensors go first
+    del shapes, fill_shapes, tables, k64, p64, u8, i32, i32w, part, part_mask
+    del q6_streams, q6_keep, h256, h1024, h256u
+    torch.cuda.empty_cache()
+    world = max(p for p in (1, 2, 4) if p <= torch.cuda.device_count())
+    t0 = time.perf_counter()
+    if world == 1:
+        distributed = distributed_phase(0, 1, free_port(), n, args.seed,
+                                        args.reps)
+    else:
+        record = _build.BUILD_DIR / "distributed_phase.json"
+        torch.multiprocessing.start_processes(
+            distributed_phase, nprocs=world, start_method="spawn",
+            args=(world, free_port(), n, args.seed, args.reps, str(record)))
+        distributed = json.loads(record.read_text())
+    for r in distributed["cases"]:
+        for name, count in r["launches"].items():
+            main_launches[name] += count
+    log(f"phase 5: the distributed tier on {world} rank(s) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for name, (replaces, source) in TPU_KERNELS.items():
         t = next(x for x in timings if x["name"] == name)
@@ -1218,6 +1613,7 @@ def main() -> int:
               "kernels": kernels, "kernel_timings": timings,
               "fill_tile_sweep": tile_sweep,
               "main_path": results, "cpu_card_agree": agreed,
+              "distributed": distributed,
               "seconds": time.perf_counter() - t_start}
     if args.out:
         with open(args.out, "w") as f:

@@ -37,7 +37,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15, proc.stdout
+    # parallel/ brought 3 (the package, dist_sort, dist_ops)
+    assert n_modules >= 27, proc.stdout
 
 
 def test_no_cuda_means_raise_unless_cpu_is_asked(monkeypatch):
@@ -167,3 +168,47 @@ def test_which_jax_methods_are_ported(name, ported):
     else:
         with pytest.raises(ValueError, match="not yet ported"):
             tsrs.sort(keys, method=name, device="cpu")
+
+
+def test_parallel_surface_mirrors_the_jax_package():
+    import simd_radix_sort_tpu.parallel as jpar
+    from simd_radix_sort_tpu_torch import parallel as tpar
+
+    jax_names = {n for n in dir(jpar) if not n.startswith("_")} - {
+        "multihost"}
+    assert set(tpar.NOT_YET_PORTED) <= jax_names
+    # make_mesh becomes make_group: a process group, not a device mesh
+    want = (jax_names - set(tpar.NOT_YET_PORTED) - {"make_mesh"}) | {
+        "make_group"}
+    assert set(tpar.__all__) == want
+    assert all(hasattr(tpar, n) for n in tpar.__all__)
+    assert not any(hasattr(tpar, n) for n in tpar.NOT_YET_PORTED)
+
+
+def _distributed_entries():
+    from simd_radix_sort_tpu_torch import parallel as tpar
+
+    keys = np.arange(16, dtype=np.int32)
+    return [
+        lambda d: tpar.distributed_sort(keys, keys, device=d),
+        lambda d: tpar.distributed_sort_multi((keys, keys), device=d),
+        lambda d: tpar.distributed_filter(lambda k: k > 3, keys, device=d),
+        lambda d: tpar.distributed_group_aggregate(keys, keys, device=d),
+        lambda d: tpar.distributed_join(keys, (), keys, (), device=d),
+        lambda d: tpar.distributed_top_k(keys, k=2, device=d),
+        lambda d: tpar.distributed_unique(keys, device=d),
+    ]
+
+
+@pytest.mark.parametrize("entry", range(7))
+def test_distributed_entries_need_a_card_and_a_group(monkeypatch, entry):
+    import torch.distributed as dist
+
+    call = _distributed_entries()[entry]
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(None)
+    # the CPU asked for, but no process group: never one rank unasked
+    with pytest.raises(RuntimeError, match="not initialised"):
+        call("cpu")
