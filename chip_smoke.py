@@ -40,6 +40,9 @@ Phases, each raising on failure:
        (p)     sort(method="quick") at 4·10^6 rows (QUICK_N), stable and
                not (the blocked path must run); quick_sort.partition;
                method="rank" at 4096 rows.
+     Then the host engines, method="torch" and method="cpp" (the native
+     harness, built here with g++), at 10^6 rows of (a)'s data: each must
+     equal the stable comparison sort byte for byte.
   3b. (k)-(p) again at 10^6 rows, on the CPU and on the card: the outputs
      must agree (integers exactly, float sums to 1e-12).
   4. times: CUDA events, median of --reps after warm-up, for each kernel
@@ -61,6 +64,10 @@ Phases, each raising on failure:
        (u)     distributed_join of lineitem and orders, uniform and with
                one order's key on every fourth lineitem (the hot path);
        (v)     distributed_top_k (k=100) and distributed_unique;
+       (w)     the hierarchical tier on an S x C mesh of the ranks ((1, 1),
+               (2, 1), (2, 2) at P = 1, 2, 4): hierarchical_sort of (a)'s
+               data with exchange_chunks=2, and
+               hierarchical_group_aggregate, Q1's groups and l_orderkey's;
      each gated on the whole result (gather_*) against single-card torch
      calls, then timed and profiled (NCCL device time, host reads of split
      sizes, K5 launches, which join the kernels line's counts); then the
@@ -76,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import socket
 import statistics
 import subprocess
@@ -613,7 +621,7 @@ def operator_cases(t, quick_n: int):
 
 
 def distributed_cases(t, world: int, group, device):
-    """Cases (q)-(v), the distributed tier (simd_radix_sort_tpu_torch/
+    """Cases (q)-(w), the distributed tier (simd_radix_sort_tpu_torch/
     parallel/) on `world` ranks over the tables `t`, which every rank holds
     whole (the entries keep the rank's block of rows): each (label, rows,
     run(), gate(out), K5 launches at P = 1, canon(out)).  Each gate
@@ -831,13 +839,36 @@ def distributed_cases(t, world: int, group, device):
                   lambda: par.distributed_unique(t["uniq"], **kw),
                   v_unique_gate, 2,
                   lambda out: [torch.tensor(out[0]), out[1], out[2]]))
+
+    # (w) the hierarchical tier on an S x C mesh of the ranks: (1, 1) at
+    # P = 1, (2, 1) at P = 2, (2, 2) at P = 4; gated as (q) and (t).  At
+    # P = 1 the sort is one local sort and each aggregate is tier 0 alone
+    # (the one-slice shortcut): one K5 launch each
+    slices = 1 if world == 1 else 2
+    label = "w hierarchical_sort exchange_chunks=2 u64+u64"
+    cases.append((
+        label, k64.numel(),
+        lambda: par.hierarchical_sort(k64, p64, num_slices=slices,
+                                      exchange_chunks=2, **kw),
+        q_gate(label), 0, q_canon))
+    for label, key, aggs in (
+            ("w Q1 hierarchical_group_aggregate", "l_rfls",
+             ("sum", "mean", "count")),
+            ("w hierarchical_group_aggregate by l_orderkey", "l_orderkey",
+             ("sum", "count"))):
+        cases.append((
+            label, n_l,
+            lambda key=key, aggs=aggs: par.hierarchical_group_aggregate(
+                t[key], price, aggs, num_slices=slices, **kw),
+            t_gate(label, key, aggs), 1,
+            lambda out: [torch.tensor(out[0]), out[1], *out[2]]))
     return cases
 
 
 def distributed_phase(rank: int, world: int, port: int, n: int, seed: int,
                       reps: int, out_path=None):
     """Phase 5 on rank `rank` of `world`, one card per rank: an NCCL group
-    (tcp://localhost:port), cases (q)-(v) at full size (--n rows and TPC-H
+    (tcp://localhost:port), cases (q)-(w) at full size (--n rows and TPC-H
     SF10, made from --seed on this rank's card), each driven once with the
     launch and host-read counts set to 0 just before it, then timed and
     profiled; then the same cases at 10^6 rows through a Gloo group of the
@@ -961,7 +992,8 @@ def main() -> int:
     from simd_radix_sort_tpu_torch.models import roofline
     from simd_radix_sort_tpu_torch.ops import (_build, cuda_hist as ch,
                                                cuda_partition as cp, radix)
-    from simd_radix_sort_tpu_torch.utils import data as D, interop, transforms
+    from simd_radix_sort_tpu_torch.utils import (data as D, interop, native,
+                                                 transforms)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1394,6 +1426,37 @@ def main() -> int:
     main_launches = {name: sum(r["launches"].get(name, 0) for r in results)
                      for name in TPU_KERNELS}
 
+    # the host engines, torch.sort and the native radix on the host, at
+    # SMALL_N rows of (a)'s data: each must equal the stable comparison sort
+    t0 = time.perf_counter()
+    native.build()
+    # the native radix runs one thread per hardware thread it is told of
+    host_engines = {"native_build_s": time.perf_counter() - t0,
+                    "cpu_count": os.cpu_count(),
+                    "cpus_usable": len(os.sched_getaffinity(0))}
+    log(f"phase 3: native harness built in "
+        f"{host_engines['native_build_s']:.1f} s "
+        f"({native.library_path().name})")
+    hk, hp = k64[:SMALL_N], p64[:SMALL_N]
+    want = srs.sort(hk, hp, method="xla", stable=True)
+    for name in ("torch", "cpp"):
+        got = srs.sort(hk, hp, method=name)
+        if not all(g.device == w.device and torch.equal(signed(g), signed(w))
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"method={name}: differs from the stable "
+                                 "comparison sort of its input")
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            srs.sort(hk, hp, method=name)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        host_engines[name] = {"n": SMALL_N, "host_ms": statistics.median(
+            reps), "host_ms_runs": reps}
+    log(f"phase 3: host engines equal xla stable=True at {SMALL_N} rows "
+        f"u64+u64: {json.dumps(host_engines)}")
+    del hk, hp, want, got
+
     # ---- phase 3b: (k)-(p) at 10^6 rows on the CPU and on the card --------
     t0 = time.perf_counter()
     small = tpch_tables(SMALL_N // 4, SMALL_N, SMALL_N, args.seed, "cpu")
@@ -1612,7 +1675,8 @@ def main() -> int:
               "cuda": torch.version.cuda, "n": n, "seed": args.seed,
               "kernels": kernels, "kernel_timings": timings,
               "fill_tile_sweep": tile_sweep,
-              "main_path": results, "cpu_card_agree": agreed,
+              "main_path": results, "host_engines": host_engines,
+              "cpu_card_agree": agreed,
               "distributed": distributed,
               "seconds": time.perf_counter() - t_start}
     if args.out:

@@ -16,9 +16,13 @@ Ported methods:
               batched block sorts (ops/quick_sort.sort_arrays)
   * "quickseq" — host model with the reference's exact pivot/recursion
               semantics (ops/quick_sort.sort_np)
+  * "torch" — torch.sort on the host (ops/torch_baseline.py; the external-
+              comparison baseline)
+  * "cpp"   — the native threaded C++ LSD byte radix on the host
+              (utils/native.py over native/harness.cpp)
   * "seq"   — host NumPy stable-argsort model (differential baseline)
-Special selector: "auto" (static policy).  The JAX package's other names
-raise ValueError until they are ported.
+Special selector: "auto" (static policy).  The JAX package's "autotune"
+raises ValueError until it is ported.
 """
 
 from __future__ import annotations
@@ -112,6 +116,18 @@ def _run_quickseq(keys, payloads, **kw):
                         takes_threshold=True)(keys, payloads, **kw)
 
 
+def _run_torch(keys, payloads, **kw):
+    from .ops import torch_baseline
+    return _host_method(torch_baseline.sort_np)(keys, payloads, **kw)
+
+
+def _run_cpp(keys, payloads, **kw):
+    # builds the native library at first use; a failed build raises with
+    # the compiler's output
+    from .utils import native
+    return _host_method(native.sort_np)(keys, payloads, **kw)
+
+
 REGISTRY: dict[str, SortMethod] = {}
 
 
@@ -126,10 +142,12 @@ register(SortMethod("count", _run_count, _count_supports))
 register(SortMethod("quick", _run_quick, _supports_all, has_threshold=True))
 register(SortMethod("quickseq", _run_quickseq, _supports_all,
                     has_threshold=True, device=False))
+register(SortMethod("torch", _run_torch, _supports_all, device=False))
 register(SortMethod("seq", _run_seq, _supports_all, device=False))
+register(SortMethod("cpp", _run_cpp, _supports_all, device=False))
 
 # Names the JAX package registers that have no port yet.
-NOT_YET_PORTED = ("torch", "cpp", "autotune")
+NOT_YET_PORTED = ("autotune",)
 
 # Engine crossovers of the static "auto" policy: the JAX package's values
 # (methods.py:191-194), measured on a TPU.  They are placeholders here until

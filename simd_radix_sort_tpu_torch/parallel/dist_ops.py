@@ -131,7 +131,8 @@ def assemble_aggregate_result(out, agg, aggs_req, partial_aggs, group):
     return ng, gk_out, tuple(result_for(a) for a in aggs_req)
 
 
-def combine_received_partials(recv, partial_aggs, total_recv: int):
+def combine_received_partials(recv, partial_aggs, total_recv: int,
+                              rows: int | None = None):
     """Combine exchanged partial rows into per-group totals.
 
     `recv` holds the key carrier stream followed by the partial streams
@@ -142,9 +143,10 @@ def combine_received_partials(recv, partial_aggs, total_recv: int):
     partial under its combine op (one K5 launch).
 
     Returns (num_groups (1,) int32 tensor, carrier_groups, totals):
-    total_recv rows in ascending carrier order, not the JAX package's
-    cap_recv (nothing reads past num_groups); past num_groups the carriers
-    are 0 and each total holds its combine's identity."""
+    total_recv rows in ascending carrier order, or `rows` rows when given
+    (the JAX package's cap_recv, where a further exchange reads the table:
+    every rank then holds as many rows); past num_groups the carriers are 0
+    and each total holds its combine's identity."""
     combine_ops, streams_per_op = [], {}
     for i, pa in enumerate(partial_aggs):
         op = COMBINE[pa]
@@ -156,13 +158,20 @@ def combine_received_partials(recv, partial_aggs, total_recv: int):
         recv[0][:total_recv], tuple(p[:total_recv] for p in recv[1:]),
         aggs=tuple(combine_ops),
         agg_streams=tuple(tuple(streams_per_op[op]) for op in combine_ops))
+    def grown(t):
+        if rows is None or rows <= t.shape[0]:
+            return t
+        out = t.new_zeros(rows)
+        common.as_signed(out)[:t.shape[0]] = common.as_signed(t)
+        return out
+
     totals = [None] * len(partial_aggs)
     n = int(ng)
     for op, res in zip(combine_ops, res_all):
         for j, i in enumerate(streams_per_op[op]):
-            totals[i] = _fill_past(res[j], n,
+            totals[i] = _fill_past(grown(res[j]), n,
                                    combine_identity(res[j].dtype, op))
-    return ng.reshape(1), _fill_past(gk, n, 0), totals
+    return ng.reshape(1), _fill_past(grown(gk), n, 0), totals
 
 
 def distributed_filter(predicate, keys, *payloads, group=None, device=None):

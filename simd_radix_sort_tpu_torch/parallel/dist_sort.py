@@ -36,6 +36,11 @@ changes:
   * the exchange is one path on every backend (`use_ragged` is accepted and
     ignored): runs that are adjacent are sent as they lie, runs with gaps
     (the blocked mode's, a clipped overflow's) are first copied together;
+    `exchange_chunks` makes several exchanges with one host read, their
+    transfers in flight together;
+  * a mesh axis of a 2-D mesh (parallel/multihost.py) is a `Subgroup`: some
+    ranks of a group, whose collectives run on that group's communicator
+    with the other ranks' shares empty;
   * every stream travels as its bytes, an (n, itemsize) int8 view: Gloo has
     no int16, and neither Gloo nor NCCL has uint16/32/64;
   * a 64-bit key or payload is one int64 word (the JAX package's u32
@@ -49,6 +54,7 @@ changes:
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -75,6 +81,25 @@ def _require_group() -> None:
             "torch.distributed is not initialised: call "
             "torch.distributed.init_process_group first, one process per "
             "rank")
+
+
+class Subgroup(NamedTuple):
+    """Some ranks of the process group `parent` (None is the default group)
+    that exchange only among themselves: one axis of a 2-D mesh.  `ranks`
+    are ranks of `parent`, ascending, so member order is rank order.  Its
+    collectives run on the parent's communicator, with empty shares for
+    the other ranks; every rank of the parent takes part in each one, each
+    for its own subgroup, so no communicator is created for it."""
+    parent: object
+    ranks: tuple
+
+
+def rank_and_size(group) -> tuple[int, int]:
+    """This process's rank in `group` (a process group or a Subgroup) and
+    the group's size."""
+    if isinstance(group, Subgroup):
+        return group.ranks.index(dist.get_rank(group.parent)), len(group.ranks)
+    return dist.get_rank(group), dist.get_world_size(group)
 
 
 def make_group(num_devices: int | None = None):
@@ -149,11 +174,32 @@ def _unwire(b: torch.Tensor, dtype) -> torch.Tensor:
 def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     """The rows of `t` from every rank of `group`, in rank order (the JAX
     package's `lax.all_gather(...).reshape(-1)`).  Every rank passes the
-    same number of rows."""
+    same number of rows.  A Subgroup gathers over its parent and keeps its
+    members' rows."""
     w = _wire(t)
-    out = w.new_empty((dist.get_world_size(group) * w.shape[0], w.shape[1]))
-    _all_gather_single(out, w, group=group)
+    parent = group.parent if isinstance(group, Subgroup) else group
+    world = dist.get_world_size(parent)
+    out = w.new_empty((world * w.shape[0], w.shape[1]))
+    _all_gather_single(out, w, group=parent)
+    if isinstance(group, Subgroup):
+        members = torch.tensor(group.ranks, device=out.device)
+        out = out.view(world, *w.shape).index_select(0, members).view(
+            -1, w.shape[1])
     return _unwire(out, t.dtype)
+
+
+def _all_to_all(out, src, recv, send, group):
+    """`all_to_all_single` with split sizes per rank of `group`, issued with
+    async_op=True: returns its work.  A Subgroup's exchange runs on its
+    parent, with zero rows to and from every other rank."""
+    if isinstance(group, Subgroup):
+        world = dist.get_world_size(group.parent)
+        recv_all, send_all = [0] * world, [0] * world
+        for i, r in enumerate(group.ranks):
+            recv_all[r], send_all[r] = recv[i], send[i]
+        recv, send, group = recv_all, send_all, group.parent
+    return dist.all_to_all_single(out, src, recv, send, group=group,
+                                  async_op=True)
 
 
 def pmax(flag, group=None) -> torch.Tensor:
@@ -198,13 +244,20 @@ def exchange_by_bounds(streams, bounds, group, cap_recv: int,
     if n_local == 0:
         # every rank holds the same number of rows, so every rank skips
         return [s.new_zeros(cap_recv) for s in streams], 0, 0
-    dev = streams[0].device
+    starts, lens = runs_of_bounds(bounds, n_local, n_valid)
+    return exchange_by_runs(streams, starts, lens, group, cap_recv)
+
+
+def runs_of_bounds(bounds, n_local: int, n_valid=None):
+    """(starts, lens), int64, of the P runs that P-1 bounds cut from a
+    sorted buffer of n_local rows; the last run ends at n_local, or at
+    `n_valid`, where every run is clipped."""
     end = torch.as_tensor(n_local if n_valid is None else n_valid,
-                          device=dev).to(torch.int64).clamp(max=n_local)
+                          device=bounds.device).to(torch.int64).clamp(
+                              max=n_local)
     bounds = torch.minimum(bounds.to(torch.int64), end)
     starts = torch.cat([bounds.new_zeros(1), bounds])
-    ends = torch.cat([bounds, end.reshape(1)])
-    return exchange_by_runs(streams, starts, ends - starts, group, cap_recv)
+    return starts, torch.cat([bounds, end.reshape(1)]) - starts
 
 
 def exchange_by_runs(streams, starts, lens, group, cap_recv: int,
@@ -214,41 +267,70 @@ def exchange_by_runs(streams, starts, lens, group, cap_recv: int,
     into a cap_recv-row buffer per stream.  The runs need not be adjacent
     (the blocked mode sends one key segment at a time), but must be
     disjoint and in destination order.  Returns as exchange_by_bounds."""
-    rank, num_p = dist.get_rank(group), dist.get_world_size(group)
-    if streams[0].shape[0] == 0:
-        return [s.new_zeros(cap_recv) for s in streams], 0, 0
-    meta = torch.cat([lens, starts]).to(torch.int64)
-    sizes = all_gather_rows(meta, group).view(num_p, 2, num_p).tolist()
+    recv, totals, overflows = exchange_chunks([(streams, starts, lens)],
+                                              group, cap_recv)
+    return recv, totals[0], overflows[0]
+
+
+def exchange_chunks(chunks, group, cap_recv: int):
+    """Q bucketed all-to-alls in one: `chunks` is a list of (streams,
+    starts, lens), each an `exchange_by_runs` of its own, clipped to its own
+    cap_recv rows exactly as Q separate calls would clip it.  One all-gather
+    carries every chunk's run table, so the Q exchanges cost one host read
+    of split sizes, not Q, and every chunk's `all_to_all_single` is in
+    flight before any is waited on.  Every chunk has the same streams'
+    dtypes and the same row count.
+
+    Returns (recv_streams, totals, overflows): one buffer of Q·cap_recv
+    rows per stream, chunk i's totals[i] received rows at offset
+    sum(totals[:i]) (the received rows of all chunks form one prefix, the
+    rest are zeros), and one overflow flag per chunk, 1 when some rank's
+    chunk exceeded cap_recv; totals and flags are Python ints."""
+    rank, num_p = rank_and_size(group)
+    q = len(chunks)
+    first = chunks[0][0]
+    if first[0].shape[0] == 0:
+        # every rank holds the same number of rows, so every rank skips
+        return [s.new_zeros(q * cap_recv) for s in first], [0] * q, [0] * q
+    meta = torch.cat([torch.cat([lens, starts]) for _, starts, lens
+                      in chunks]).to(torch.int64)
+    sizes = all_gather_rows(meta, group).view(num_p, q, 2, num_p).tolist()
     HOST_READS["split_sizes"] += 1
-    # clip the WHOLE size matrix, as every rank does, so that what rank s
-    # sends to rank d is what rank d expects from rank s
-    clipped = [[0] * num_p for _ in range(num_p)]
-    raw = [0] * num_p  # rows bound for each rank before clipping
-    for d in range(num_p):
-        for s in range(num_p):
-            size = sizes[s][0][d]
-            clipped[s][d] = max(0, min(size, cap_recv - raw[d]))
-            raw[d] += size
-    overflow = int(max(raw) > cap_recv)
-    total_recv = min(raw[rank], cap_recv)
-    send = clipped[rank]
-    recv = [clipped[s][rank] for s in range(num_p)]
-    my_starts = sizes[rank][1]
-    adjacent = all(my_starts[d] + send[d] == my_starts[d + 1]
-                   for d in range(num_p - 1))
-    out_streams = []
-    for s in streams:
-        w = _wire(s)
-        if adjacent:
-            src = w.narrow(0, my_starts[0], sum(send))
-        else:
-            src = torch.cat([w.narrow(0, a, m)
-                             for a, m in zip(my_starts, send)])
-        out = w.new_zeros((cap_recv, w.shape[1]))
-        dist.all_to_all_single(out.narrow(0, 0, total_recv), src, recv, send,
-                               group=group)
-        out_streams.append(_unwire(out, s.dtype))
-    return out_streams, total_recv, overflow
+    outs = [_wire(s).new_zeros((q * cap_recv, s.element_size()))
+            for s in first]
+    works, totals, overflows, offset = [], [], [], 0
+    for i, (streams, _, _) in enumerate(chunks):
+        # clip the WHOLE size matrix, as every rank does, so that what rank
+        # s sends to rank d is what rank d expects from rank s
+        clipped = [[0] * num_p for _ in range(num_p)]
+        raw = [0] * num_p  # rows bound for each rank before clipping
+        for d in range(num_p):
+            for s in range(num_p):
+                size = sizes[s][i][0][d]
+                clipped[s][d] = max(0, min(size, cap_recv - raw[d]))
+                raw[d] += size
+        total = min(raw[rank], cap_recv)
+        send = clipped[rank]
+        recv = [clipped[s][rank] for s in range(num_p)]
+        my_starts = sizes[rank][i][1]
+        adjacent = all(my_starts[d] + send[d] == my_starts[d + 1]
+                       for d in range(num_p - 1))
+        for s, out in zip(streams, outs):
+            w = _wire(s)
+            if adjacent:
+                src = w.narrow(0, my_starts[0], sum(send))
+            else:
+                src = torch.cat([w.narrow(0, a, m)
+                                 for a, m in zip(my_starts, send)])
+            works.append(_all_to_all(out.narrow(0, offset, total), src,
+                                     recv, send, group))
+        totals.append(total)
+        overflows.append(int(max(raw) > cap_recv))
+        offset += total
+    for work in works:
+        work.wait()
+    return ([_unwire(o, s.dtype) for o, s in zip(outs, first)], totals,
+            overflows)
 
 
 def _lex_less(rows, splitters) -> torch.Tensor:

@@ -1,17 +1,18 @@
 """Dataset generation and the self-validating oracle (NumPy only).
 
-A copy of simd_radix_sort_tpu/utils/data.py's "fast" protocol, kept here so
-the port never imports the JAX package: the same seed gives the same keys
-and payloads in both packages.
+A copy of simd_radix_sort_tpu/utils/data.py, kept here so the port never
+imports the JAX package: the same seed gives the same keys and payloads in
+both packages.
 
   * the 8 input distributions of the reference harness (data.hpp:64-170);
-  * the payload protocol: every payload is a deterministic function of its
-    key (splitmix64 of the key bits and the stream index), so validation
-    regenerates the expected payload from each sorted key;
+  * the payload protocols: every payload is a deterministic function of
+    its key, so validation regenerates the expected payload from each
+    sorted key.  "fast" (the default) is splitmix64 of the key bits and
+    the stream index; "cpp" replicates the reference's glibc srand/rand
+    byte draws bit for bit (utils/cpp_rng.py), for datasets that must
+    equal the reference's;
   * the oracle: sortedness in the key dtype's bit order, payload
     regeneration and key multiset equality.
-
-The reference-exact "cpp" payload protocol is not carried over yet.
 """
 
 from __future__ import annotations
@@ -119,12 +120,42 @@ def make_payload_fast(keys: np.ndarray, stream_index: int,
     return bits.view(dtype)
 
 
+def make_payload_cpp(keys: np.ndarray, payload_dtypes):
+    """Reference-exact payloads: glibc rand seeded with the key's low 4
+    bytes, sizeof(P) bytes drawn per payload in declaration order."""
+    from . import cpp_rng
+
+    dtype = np.dtype(keys.dtype)
+    seed_bytes = min(dtype.itemsize, 4)
+    u = keys.view(common.unsigned_of(dtype)).astype(np.uint64)
+    seeds = (u & np.uint64((1 << (8 * seed_bytes)) - 1)).astype(np.uint32)
+    total_bytes = sum(np.dtype(p).itemsize for p in payload_dtypes)
+    draws = cpp_rng.glibc_rand_bytes(seeds, total_bytes)  # (n, total) u8
+    out, off = [], 0
+    for p in payload_dtypes:
+        p = np.dtype(p)
+        out.append(np.ascontiguousarray(draws[:, off:off + p.itemsize])
+                   .reshape(-1).view(p))
+        off += p.itemsize
+    return tuple(out)
+
+
 def make_payloads(keys: np.ndarray, payload_dtypes, protocol: str = "fast"):
-    if protocol != "fast":
-        raise ValueError(f"payload protocol {protocol!r} is not ported yet; "
-                         "have 'fast'")
-    return tuple(make_payload_fast(keys, j, p)
-                 for j, p in enumerate(payload_dtypes))
+    if protocol == "fast":
+        return tuple(make_payload_fast(keys, j, p)
+                     for j, p in enumerate(payload_dtypes))
+    if protocol == "cpp":
+        return make_payload_cpp(keys, payload_dtypes)
+    raise ValueError(f"unknown payload protocol {protocol!r}")
+
+
+def make_dataset(num: int, key_dtype, payload_dtypes,
+                 distribution: Distribution, seed: int = 0,
+                 protocol: str = "fast"):
+    """Keys and their payloads: the reference's Data<K, Ps...>
+    constructor."""
+    keys = make_keys(num, key_dtype, distribution, seed)
+    return keys, make_payloads(keys, payload_dtypes, protocol)
 
 
 def is_sorted(keys: np.ndarray, ascending: bool = True) -> bool:

@@ -12,7 +12,11 @@ byte for byte, integers and min/max exactly, float sums and means to
 RTOL = 1e-12 relative to the group's sum (or mean) of magnitudes (the two
 packages add in another order: an associative-scan tree against a doubling
 scan); joins per rank: count and overflow exactly, the output rows as a
-multiset, the hot statistics exactly; top_k and unique exactly.
+multiset, the hot statistics exactly; top_k and unique exactly.  Joins
+and aggregates with capacities set too small must be truncated and flagged
+alike (a join's five overflow parts per rank), an aggregate without retries
+must raise as the JAX package's does, and one with retries must end with
+the JAX package's answer.
 """
 
 import numpy as np
@@ -123,6 +127,45 @@ JOIN_CASES = ("uniform int32", "hot key on 60% int64",
               "many-to-many uint64, no hot path")
 
 
+def _join_overflow_data(name):
+    """Joins whose capacities are set too small: each is truncated and
+    flagged, and its overflow parts name the capacity that tripped."""
+    rng = _rng(25)
+    nb = 2048
+    pp = (np.arange(N, dtype=np.int64),)
+    bp = (np.arange(nb, dtype=np.int32),)
+    if name == "capacity_factor 0.5":
+        pk = rng.integers(0, nb, N).astype(np.int32)
+        return pk, pp, rng.permutation(nb).astype(np.int32), bp, {
+            "capacity_factor": 0.5, "hot_keys": 0}
+    if name == "out_rows_per_device 4096":
+        keys = rng.integers(0, 2**64, 300, dtype=np.uint64)
+        return (keys[rng.integers(0, 300, N)], pp,
+                keys[rng.integers(0, 300, nb)], bp,
+                {"out_rows_per_device": 4096, "hot_keys": 0})
+    if name == "hot_rows_per_device 32":
+        pk = rng.integers(0, nb, N)
+        pk[rng.random(N) < 0.6] = 77
+        bk = rng.permutation(nb)
+        bk[rng.random(nb) < 0.25] = 77
+        return pk, pp, bk, bp, {"hot_rows_per_device": 32}
+    raise KeyError(name)
+
+
+JOIN_OVERFLOW_CASES = ("capacity_factor 0.5", "out_rows_per_device 4096",
+                       "hot_rows_per_device 32")
+# every key distinct: a quarter of the rows' capacity holds too few groups
+AGG_OVERFLOW_CASES = {"factor 0.25, no retry": {"capacity_factor": 0.25,
+                                                "max_retries": 0},
+                      "factor 0.5, elastic retry": {"capacity_factor": 0.5,
+                                                    "max_retries": 2}}
+
+
+def _agg_overflow_data():
+    rng = _rng(26)
+    return rng.integers(0, 10**9, N), rng.normal(0, 1, N), ("sum", "count")
+
+
 def _topk_data(name):
     rng = _rng(30)
     if name == "int32 ties largest k=37":
@@ -172,6 +215,19 @@ def port_cases(group):
                                     **opts)
         gathered = tpar.gather_joined(out[0], out[1], out[2], out[3], group)
         res["join", name] = to_np(out + gathered)
+    for name in JOIN_OVERFLOW_CASES:
+        pk, pp, bk, bp, opts = _join_overflow_data(name)
+        out = tpar.distributed_join(pk, pp, bk, bp, group=group, device="cpu",
+                                    return_hot_stats=True, **opts)
+        res["join overflow", name] = to_np((out[0], out[4], out[5]))
+    for name, opts in AGG_OVERFLOW_CASES.items():
+        keys, vals, agg = _agg_overflow_data()
+        try:
+            ng, gk, out = tpar.distributed_group_aggregate(
+                keys, vals, agg, group=group, device="cpu", **opts)
+            res["agg overflow", name] = (ng, to_np(gk), to_np(out))
+        except ValueError as e:
+            res["agg overflow", name] = str(e)
     for name in TOPK_CASES:
         keys, k, largest = _topk_data(name)
         res["topk", name] = to_np(tpar.distributed_top_k(
@@ -296,6 +352,56 @@ def test_distributed_join_matches_jax(port, name, size):
     if name.startswith("hot key"):
         assert int(np.asarray(jout[5]["hot_key_slots_flagged"])[0]) >= 1
     assert int(np.asarray(jov).max()) == 0
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("name", JOIN_OVERFLOW_CASES)
+def test_distributed_join_overflow_matches_jax(port, name, size):
+    from simd_radix_sort_tpu.parallel import dist_ops as jops
+
+    pk, pp, bk, bp, opts = _join_overflow_data(name)
+    jout = jops.distributed_join(pk, pp, bk, bp, mesh=_mesh(size),
+                                 return_hot_stats=True, **opts)
+    parts = "overflow_parts_probe_build_coldout_hotout_hotcap"
+    for r in range(size):
+        c, ov, stats = port[size, r]["join overflow", name]
+        assert int(c[0]) == int(np.asarray(jout[0])[r])
+        assert int(ov[0]) == int(np.asarray(jout[4])[r])
+        for key, want in jout[5].items():
+            assert np.array_equal(stats[key][0], _slice(want, r, size)[0]), \
+                key
+    # the capacity named in the case is among those that tripped
+    tripped = np.asarray(jout[5][parts]).reshape(size, 5).max(0)
+    which = {"capacity_factor 0.5": (0, 1), "out_rows_per_device 4096": (2,),
+             "hot_rows_per_device 32": (4,)}[name]
+    assert all(tripped[i] for i in which), tripped
+
+
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("name", list(AGG_OVERFLOW_CASES))
+def test_distributed_group_aggregate_overflow_matches_jax(port, name, size):
+    from simd_radix_sort_tpu.parallel import dist_ops as jops
+
+    keys, vals, agg = _agg_overflow_data()
+    try:
+        want = jops.distributed_group_aggregate(
+            keys, vals, agg, mesh=_mesh(size), **AGG_OVERFLOW_CASES[name])
+    except ValueError as e:
+        want = str(e)
+    for r in range(size):
+        got = port[size, r]["agg overflow", name]
+        if isinstance(want, str):
+            assert isinstance(got, str)
+            assert "exceed receive capacity" in got and \
+                "exceed receive capacity" in want
+            continue
+        ng, gk, (s, c) = got
+        assert ng == want[0]
+        same_bytes(gk, want[1])
+        same_bytes(c, want[2][1])
+        scale = _group_scale(keys, vals, gk, False)
+        assert np.all(np.abs(s - want[2][0]) <= RTOL * scale)
+    assert isinstance(want, str) == name.endswith("no retry")
 
 
 @pytest.mark.parametrize("size", SIZES)

@@ -37,8 +37,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    # parallel/ brought 3 (the package, dist_sort, dist_ops)
-    assert n_modules >= 27, proc.stdout
+    # parallel/ brought 4 (the package, dist_sort, dist_ops, multihost),
+    # the host engines 3 (ops/torch_baseline, utils/cpp_rng, utils/native)
+    assert n_modules >= 31, proc.stdout
 
 
 def test_no_cuda_means_raise_unless_cpu_is_asked(monkeypatch):
@@ -153,13 +154,15 @@ def test_roofline_picks_the_h100_part_by_name():
 def test_public_surface_mirrors_the_jax_package():
     assert set(tsrs.__all__) == set(jsrs.__all__)
     assert set(tsrs.SORT_METHODS) == {"xla", "radix", "count", "rank",
-                                      "quick", "quickseq", "seq"}
+                                      "quick", "quickseq", "seq", "torch",
+                                      "cpp"}
+    assert tsrs.methods.NOT_YET_PORTED == ("autotune",)
     assert os.path.basename(tsrs.__file__) == "__init__.py"
 
 
 @pytest.mark.parametrize("name,ported", [
     ("rank", True), ("quick", True), ("quickseq", True),
-    ("torch", False), ("cpp", False), ("autotune", False)])
+    ("torch", True), ("cpp", True), ("autotune", False)])
 def test_which_jax_methods_are_ported(name, ported):
     keys = np.arange(8, dtype=np.int32)[::-1].copy()
     if ported:
@@ -174,15 +177,15 @@ def test_parallel_surface_mirrors_the_jax_package():
     import simd_radix_sort_tpu.parallel as jpar
     from simd_radix_sort_tpu_torch import parallel as tpar
 
-    jax_names = {n for n in dir(jpar) if not n.startswith("_")} - {
-        "multihost"}
-    assert set(tpar.NOT_YET_PORTED) <= jax_names
-    # make_mesh becomes make_group: a process group, not a device mesh
-    want = (jax_names - set(tpar.NOT_YET_PORTED) - {"make_mesh"}) | {
-        "make_group"}
+    jax_names = {n for n in dir(jpar) if not n.startswith("_")}
+    assert tpar.NOT_YET_PORTED == ()
+    # make_mesh becomes make_group: a process group, not a device mesh;
+    # make_hierarchical_mesh keeps its name beside make_hierarchical_groups
+    want = (jax_names - {"make_mesh"}) | {"make_group",
+                                          "make_hierarchical_groups"}
     assert set(tpar.__all__) == want
     assert all(hasattr(tpar, n) for n in tpar.__all__)
-    assert not any(hasattr(tpar, n) for n in tpar.NOT_YET_PORTED)
+    assert tpar.make_hierarchical_mesh is tpar.make_hierarchical_groups
 
 
 def _distributed_entries():
@@ -197,10 +200,13 @@ def _distributed_entries():
         lambda d: tpar.distributed_join(keys, (), keys, (), device=d),
         lambda d: tpar.distributed_top_k(keys, k=2, device=d),
         lambda d: tpar.distributed_unique(keys, device=d),
+        lambda d: tpar.hierarchical_sort(keys, keys, device=d),
+        lambda d: tpar.hierarchical_group_aggregate(keys, keys, device=d),
+        lambda d: tpar.multihost.distributed_sort_multihost(keys, device=d),
     ]
 
 
-@pytest.mark.parametrize("entry", range(7))
+@pytest.mark.parametrize("entry", range(10))
 def test_distributed_entries_need_a_card_and_a_group(monkeypatch, entry):
     import torch.distributed as dist
 
