@@ -73,6 +73,20 @@ Phases, each raising on failure:
      sizes, K5 launches, which join the kernels line's counts); then the
      same cases at 10^6 rows on a Gloo group on the CPU and on the NCCL
      group on the card, which must agree.
+  6. the measurement layer (measurement_phase), its kernel launches
+     joining the kernels line's counts: perf.measure_ns_per_element at
+     2^18 rows (xla, radix, quick on u64+u64; count and xla on uint8 and
+     int32 keys-only; rank at 4096), each validated on the host, and "auto"
+     on u64+u64 at --n rows through the device gate; one cell 5 times (the
+     spread); one table of each perf_test family, written under
+     build/srs_torch/perf/ and read back, its header the reference's;
+     autotune.pick_method for uint32 keys-only and u64+u64 at 2^20 (its
+     own cache), then sort(method="autotune") equal byte for byte to the
+     stable xla sort; profiling.trace around case (a)'s sort (the exported
+     trace must hold CUDA kernel events) and profiling.measure of it; and
+     the scaling model's constants: an NCCL one-int all_reduce chain and
+     self-exchange at P = 1, two Gloo ranks' exchange on the CPU, case
+     (q)'s blocked final pass; then the projection with this run's anchor.
 
 Prints one {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -82,6 +96,7 @@ Exits non-zero, with no result, when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import socket
@@ -971,6 +986,342 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# phase 6: the header row each table family must carry (the reference's,
+# perf.hpp:170-211, 383-385, 435, as the JAX package writes them)
+PERF_HEADERS = {
+    "perf_test": "sort_method nanoseconds_per_element",
+    "perf_test_num": "number_of_elements xla count",
+    "perf_test_block": "digitBits nanoseconds_per_element",
+    "perf_test_thresh": "cmpThresh nanoseconds_per_element",
+    "perf_test_speedup": "key_type factor1 factor2 factor4 factor8",
+    "perf_test_packed": "sort_method nanoseconds_per_element",
+    "perf_test_combined": "layout nanoseconds_per_element",
+}
+REF_N = 1 << 18  # the reference harness's default cell size
+CHAIN = 64  # depth of the dependent all_reduce chains
+GLOO_ROWS = 1 << 22  # u64+u64 rows a Gloo rank exchanges
+
+
+def collective_chain_s(device) -> float:
+    """Seconds of one all_reduce of one int32 in a CHAIN-deep dependent
+    chain on the current process group (median of 5 chains)."""
+    import torch
+    import torch.distributed as dist
+
+    from simd_radix_sort_tpu_torch.utils.profiling import elapsed_seconds
+
+    x = torch.zeros(1, dtype=torch.int32, device=device)
+
+    def chain():
+        for _ in range(CHAIN):
+            dist.all_reduce(x)
+
+    chain()
+    return statistics.median(elapsed_seconds(device, chain)
+                             for _ in range(5)) / CHAIN
+
+
+def gloo_comm_rank(rank: int, world: int, port: int, out_path: str) -> None:
+    """One of `world` Gloo ranks on the CPU: time the distributed sort's
+    exchange (`dist_sort.exchange_by_bounds`, uniform cuts, so every rank
+    receives exactly GLOO_ROWS rows) of GLOO_ROWS u64+u64 rows, median of
+    5, and the collective chain; rank 0 writes the record."""
+    import torch
+    import torch.distributed as dist
+
+    from simd_radix_sort_tpu_torch.parallel import dist_sort as ds
+
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        g = torch.Generator().manual_seed(rank)
+        streams = [torch.randint(-2**62, 2**62, (GLOO_ROWS,), generator=g)
+                   for _ in range(2)]
+        bounds = torch.arange(1, world) * (GLOO_ROWS // world)
+
+        def exchange():
+            return ds.exchange_by_bounds(streams, bounds, None, GLOO_ROWS)
+
+        exchange()
+        times = []
+        for _ in range(5):
+            dist.barrier()
+            t0 = time.perf_counter()
+            exchange()
+            times.append(time.perf_counter() - t0)
+        latency = collective_chain_s(torch.device("cpu"))
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump({"ranks": world, "rows_per_rank": GLOO_ROWS,
+                           "exchange_s": statistics.median(times),
+                           "exchange_s_runs": times,
+                           "collective_latency_s": latency}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def measurement_phase(n: int, seed: int, reps: int, a_ms: float,
+                      dev) -> dict:
+    """Phase 6: the measurement layer (perf.py, autotune.py,
+    utils/profiling.py, models/scaling.py) on `dev` (the card; the CPU
+    rehearses it, with Gloo in NCCL's place), through the entry points a
+    user calls.  Every cell validates its output; every table is read back
+    and its header held to the reference's.  `a_ms` is case (a)'s time
+    from phase 3.  Returns the record; raises on any failure."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import simd_radix_sort_tpu_torch as srs
+    from simd_radix_sort_tpu_torch import autotune, perf
+    from simd_radix_sort_tpu_torch.models import scaling
+    from simd_radix_sort_tpu_torch.ops import _build
+    from simd_radix_sort_tpu_torch.parallel import dist_sort as ds
+    from simd_radix_sort_tpu_torch.utils import data as D, interop, profiling
+
+    U = D.Distribution.UNIFORM
+    on = {"device": dev}
+    u64p = (np.uint64, (np.uint64,))
+    rec = {}
+
+    # (1) cells at the reference size, then u64+u64 "auto" at --n rows
+    t0 = time.perf_counter()
+    cells = []
+    for method, num, (kdt, pdt) in (
+            ("xla", REF_N, u64p), ("radix", REF_N, u64p),
+            ("quick", REF_N, u64p), ("count", REF_N, (np.uint8, ())),
+            ("xla", REF_N, (np.uint8, ())), ("count", REF_N, (np.int32, ())),
+            ("xla", REF_N, (np.int32, ())), ("rank", 4096, u64p)):
+        ns = perf.measure_ns_per_element(method, num, kdt, pdt, U, seed=seed,
+                                         **on)
+        cells.append({"method": method, "n": num,
+                      "workload": perf.table_name(kdt, pdt, U, num),
+                      "reps_warmups": perf.rep_counts(num), "ns": ns})
+    ns = perf.measure_ns_per_element("auto", n, *u64p, U, seed=seed,
+                                     validate="device", **on)
+    cells.append({"method": "auto", "n": n, "validate": "device",
+                  "workload": perf.table_name(*u64p, U, n),
+                  "reps_warmups": perf.rep_counts(n), "ns": ns,
+                  "ms": ns * n / 1e6, "case_a_ms": a_ms})
+    for c in cells:
+        log(f"phase 6: cell {json.dumps(c)}")
+    # (2) the spread of one cell
+    runs = [perf.measure_ns_per_element("xla", REF_N, *u64p, U, seed=seed,
+                                        **on) for _ in range(5)]
+    rec["spread"] = {"workload": perf.table_name(*u64p, U, REF_N),
+                     "method": "xla", "ns_runs": runs, "min": min(runs),
+                     "median": statistics.median(runs), "max": max(runs)}
+    log(f"phase 6: spread {json.dumps(rec['spread'])}")
+    rec["cells"] = cells
+    rec["cells_s"] = time.perf_counter() - t0
+
+    # (3) one table of each family, written and read back
+    t0 = time.perf_counter()
+    perf.OUT_DIR = str(_build.BUILD_DIR / "perf")
+    u8, i32 = (np.uint8, ()), (np.int32, ())
+    tables = {}
+    for family, make in (
+            ("perf_test", lambda: perf.perf_test(
+                ["xla", "radix", "quick", "count", "rank"], REF_N, *i32,
+                D.Distribution.ZERO_ONE, seed=seed, **on)),
+            ("perf_test_num", lambda: perf.perf_test_num(
+                ["xla", "count"], *u8, U, max_num=1 << 22, min_num=1 << 14,
+                **on)),
+            ("perf_test_num", lambda: perf.perf_test_num(
+                ["xla", "count"], *i32, U, max_num=1 << 22, min_num=1 << 14,
+                **on)),
+            ("perf_test_block", lambda: perf.perf_test_block(REF_N, *u64p,
+                                                             **on)),
+            ("perf_test_thresh", lambda: perf.perf_test_thresh(REF_N, *u64p,
+                                                               **on)),
+            ("perf_test_speedup", lambda: perf.perf_test_speedup(
+                "xla", "quick", REF_N, **on)),
+            ("perf_test_packed", lambda: perf.perf_test_packed(
+                1 << 22, *u64p, **on)),
+            ("perf_test_combined", lambda: perf.perf_test_combined(
+                1 << 22, *u64p, **on))):
+        path = make()
+        with open(path) as f:
+            lines = f.read().strip().splitlines()
+        if lines[0] != PERF_HEADERS[family]:
+            raise AssertionError(f"{path}: header {lines[0]!r}, not the "
+                                 f"reference's {PERF_HEADERS[family]!r}")
+        if len(lines) < 2:
+            raise AssertionError(f"{path}: no rows")
+        tables[os.path.basename(path)] = lines
+        log(f"phase 6: table {os.path.basename(path)}: {lines}")
+    rec["tables"] = tables
+    rec["tables_s"] = time.perf_counter() - t0
+
+    # (4) autotune, a cache of its own; every candidate measured is logged
+    t0 = time.perf_counter()
+    autotune._CACHE_PATH = str(_build.BUILD_DIR / "autotune.json")
+    autotune._cache = None
+    measure = perf.measure_ns_per_element
+    picks = []
+    for kdt, pdt in ((np.uint32, ()), u64p):
+        seen = {}
+
+        def recording(name, *a, seen=seen, **kw):
+            seen[name] = measure(name, *a, **kw)
+            return seen[name]
+
+        perf.measure_ns_per_element = recording
+        try:
+            winner = autotune.pick_method(kdt, pdt, 1 << 20, refresh=True,
+                                          **on)
+        finally:
+            perf.measure_ns_per_element = measure
+        keys = D.make_keys(1 << 20, kdt, U, seed)
+        pays = D.make_payloads(keys, pdt)
+        kd = interop.from_numpy(keys, dev)
+        pd = tuple(interop.from_numpy(p, dev) for p in pays)
+        got = srs.sort(kd, *pd, method="autotune", **on)
+        want = srs.sort(kd, *pd, method="xla", stable=True, **on)
+        for g, w in zip(flat(got), flat(want), strict=True):
+            if not torch.equal(signed(g), signed(w)):
+                raise AssertionError(f"autotune ({winner}) differs from the "
+                                     "stable xla sort")
+        picks.append({"workload": perf.table_name(kdt, pdt, U, 1 << 20),
+                      "key": autotune._key(kdt, pdt, 1 << 20, dev),
+                      "winner": winner, "candidates_ns": seen})
+        log(f"phase 6: autotune {json.dumps(picks[-1])}")
+    rec["autotune"] = picks
+    rec["autotune_s"] = time.perf_counter() - t0
+
+    # (5) profiling: a trace of case (a)'s sort, then its Report
+    t0 = time.perf_counter()
+    keys = D.make_keys(n, np.uint64, U, seed)
+    (pay,) = D.make_payloads(keys, [np.uint64])
+    kd, pd = interop.from_numpy(keys, dev), interop.from_numpy(pay, dev)
+    del keys, pay
+    srs.sort(kd, pd, **on)
+    trace_dir = _build.BUILD_DIR / "trace"
+    for attempt in range(3):  # the profiler at times drops device events
+        with profiling.trace(str(trace_dir), **on):
+            srs.sort(kd, pd, **on)
+        with open(trace_dir / profiling.TRACE_FILE) as f:
+            events = json.load(f)["traceEvents"]
+        kernel_events = [e["name"] for e in events
+                         if e.get("cat") == "kernel"]
+        if kernel_events or dev.type != "cuda":
+            break
+    else:
+        raise AssertionError("the exported trace holds no CUDA kernel event")
+    report = profiling.measure(lambda: srs.sort(kd, pd, **on),
+                               name="case (a)", rows=n,
+                               reps=max(5, reps // 2), **on)
+    log(f"phase 6: {report.line()}")
+    rec["profiling"] = {"trace_events": len(events),
+                        "kernel_events": len(kernel_events),
+                        "kernels": sorted(set(k[:80] for k in kernel_events)),
+                        "attempts": attempt + 1,
+                        "report": dataclasses.asdict(report)}
+    del kd, pd
+    rec["profiling_s"] = time.perf_counter() - t0
+
+    # (6) the scaling model's constants: NCCL at P = 1 in this process,
+    # two Gloo ranks on the CPU, the blocked final pass on the card
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                f"{free_port()}", rank=0, world_size=1,
+                                device_id=torch.device(
+                                    "cuda", torch.cuda.current_device()))
+    else:
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                                f"{free_port()}", rank=0, world_size=1)
+    try:
+        nccl_latency = collective_chain_s(dev)
+        wire = torch.empty((n, 16), dtype=torch.int8, device=dev)
+        into = torch.empty_like(wire)
+
+        def self_exchange():
+            dist.all_to_all_single(into, wire, [n], [n])
+
+        self_exchange()
+        xs = statistics.median(profiling.elapsed_seconds(dev, self_exchange)
+                               for _ in range(5))
+        del wire, into
+    finally:
+        dist.destroy_process_group()
+    gloo_path = _build.BUILD_DIR / "gloo_comm.json"
+    torch.multiprocessing.start_processes(
+        gloo_comm_rank, nprocs=2, start_method="spawn",
+        args=(2, free_port(), str(gloo_path)))
+    gloo = json.loads(gloo_path.read_text())
+    # case (q) blocked at P = 1: 8 segments of cap_seg rows, each half full
+    # of u64+u64 rows of its key range; the final pass sorts each prefix
+    seg, cap_seg = 8, -(-2 * n // 8)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    k, p = ((torch.randint(0, 2**32, (n,), generator=g, device=dev) << 32)
+            | torch.randint(0, 2**32, (n,), generator=g, device=dev)
+            for _ in range(2))
+    sid = (k >> 61) + 4  # key range of each row: 0..7 in carrier order
+    order = torch.argsort(sid, stable=True)
+    k, p = k.index_select(0, order), p.index_select(0, order)
+    counts = torch.bincount(sid, minlength=seg).tolist()
+    del sid, order
+    segs, off = [], 0
+    for c in counts:
+        bufs = [torch.zeros(cap_seg, dtype=torch.int64, device=dev)
+                for _ in range(2)]
+        bufs[0][:c], bufs[1][:c] = k[off:off + c], p[off:off + c]
+        segs.append((bufs, c))
+        off += c
+    del k, p
+    blocked = []
+    for _ in range(5):
+        work = [([b.clone() for b in bufs], c) for bufs, c in segs]
+        blocked.append(profiling.elapsed_seconds(dev, lambda: [
+            ds._sort_prefix(bufs, 1, c) for bufs, c in work]))
+        for bufs, c in work:
+            if not bool((bufs[0][1:c] >= bufs[0][:c - 1]).all()):
+                raise AssertionError("blocked final pass: not sorted")
+        del work
+    del segs
+    t_blocked = statistics.median(blocked)
+    measured = {
+        "case_a_ms": a_ms,
+        "anchor_rows_per_s": n / (a_ms / 1e3),
+        "collective_latency_s_nccl": nccl_latency,
+        "nccl_self_exchange_bytes": n * 16,
+        "nccl_self_exchange_s": xs,
+        "nccl_self_exchange_bytes_per_s": n * 16 / xs,
+        "gloo": gloo,
+        "gloo_bytes_per_s_per_proc": (gloo["ranks"] - 1) * GLOO_ROWS * 16
+        / gloo["exchange_s"],
+        "collective_latency_s_gloo": gloo["collective_latency_s"],
+        "blocked_segments": seg, "blocked_cap_seg": cap_seg,
+        "blocked_valid_rows": counts, "blocked_pass_s_runs": blocked,
+        "blocked_sort_rows_per_s": seg * cap_seg / t_blocked,
+    }
+    anchor = {"rows_per_s": measured["anchor_rows_per_s"], "n": n,
+              "row_bytes": 16}
+    link = scaling.LINKS["hgx-h100"]
+    rec["scaling"] = {
+        "measured": measured,
+        "committed": {"anchor": scaling.MEASURED_ANCHOR,
+                      "comm": scaling.MEASURED_COMM,
+                      "blocked_sort_rows_per_s":
+                          scaling.BLOCKED_SORT_ROWS_PER_S},
+        "projection": scaling.projection_table(anchor=anchor),
+        "projection_blocked": scaling.projection_table(
+            anchor=anchor, final_mode="blocked"),
+        "dcn_required_for_clause": scaling.dcn_required_for_clause(
+            anchor=anchor),
+        "dcn_spec_bytes_per_s_per_chip": link.dcn_bytes_per_s_per_chip}
+    log(f"phase 6: scaling constants {json.dumps(measured)}")
+    for row in rec["scaling"]["projection"]:
+        log(f"phase 6: projection {json.dumps(row)}")
+    log(f"phase 6: dcn_required_for_clause "
+        f"{rec['scaling']['dcn_required_for_clause']:.4g} B/s/GPU against "
+        f"the NDR specification's {link.dcn_bytes_per_s_per_chip:.4g}")
+    rec["scaling_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000)
@@ -1652,6 +2003,20 @@ def main() -> int:
     log(f"phase 5: the distributed tier on {world} rank(s) in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 6: the measurement layer -------------------------------------
+    t0 = time.perf_counter()
+    ch.reset_launches()
+    cp.reset_launches()
+    case_a = next(r for r in results if r["case"].startswith("a "))
+    measurement = measurement_phase(n, args.seed, args.reps, case_a["ms"],
+                                    dev)
+    measurement["launches"] = {**ch.LAUNCHES, **cp.LAUNCHES}
+    for name, count in measurement["launches"].items():
+        main_launches[name] += count
+    measurement["seconds"] = time.perf_counter() - t0
+    log(f"phase 6: the measurement layer in {measurement['seconds']:.1f} s, "
+        f"launches {json.dumps(measurement['launches'])}")
+
     kernels = []
     for name, (replaces, source) in TPU_KERNELS.items():
         t = next(x for x in timings if x["name"] == name)
@@ -1677,7 +2042,7 @@ def main() -> int:
               "fill_tile_sweep": tile_sweep,
               "main_path": results, "host_engines": host_engines,
               "cpu_card_agree": agreed,
-              "distributed": distributed,
+              "distributed": distributed, "measurement": measurement,
               "seconds": time.perf_counter() - t_start}
     if args.out:
         with open(args.out, "w") as f:

@@ -21,8 +21,8 @@ Ported methods:
   * "cpp"   — the native threaded C++ LSD byte radix on the host
               (utils/native.py over native/harness.cpp)
   * "seq"   — host NumPy stable-argsort model (differential baseline)
-Special selector: "auto" (static policy).  The JAX package's "autotune"
-raises ValueError until it is ported.
+Special selectors: "auto" (static policy) and "autotune" (measured once per
+workload shape and device, cached; autotune.py).
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ register(SortMethod("seq", _run_seq, _supports_all, device=False))
 register(SortMethod("cpp", _run_cpp, _supports_all, device=False))
 
 # Names the JAX package registers that have no port yet.
-NOT_YET_PORTED = ("autotune",)
+NOT_YET_PORTED = ()
 
 # Engine crossovers of the static "auto" policy: the JAX package's values
 # (methods.py:191-194), measured on a TPU.  They are placeholders here until
@@ -157,10 +157,12 @@ COUNT_CROSSOVER_N_1BYTE = 1 << 17
 COUNT_MIN_N_ADAPTIVE = 1 << 21
 
 
-def resolve(method: str, key_dtype, payload_dtypes: Sequence, n: int | None
-            ) -> SortMethod:
+def resolve(method: str, key_dtype, payload_dtypes: Sequence, n: int | None,
+            device=None) -> SortMethod:
     """Pick a method; "auto" chooses the engine by key width, payloads and
-    row count exactly as the JAX package's static policy does."""
+    row count exactly as the JAX package's static policy does; "autotune"
+    measures the candidates on `device` (None means "cuda"), which only it
+    reads."""
     kdt = common.np_dtype(key_dtype)
     pdts = tuple(common.np_dtype(d) for d in payload_dtypes)
     if method == "auto":
@@ -170,10 +172,10 @@ def resolve(method: str, key_dtype, payload_dtypes: Sequence, n: int | None
             if n is None or n >= floor:
                 return REGISTRY["count"]
         return REGISTRY["xla"]
-    if method in NOT_YET_PORTED:
-        raise ValueError(f"sort method {method!r} is not yet ported to the "
-                         f"PyTorch package; have {sorted(REGISTRY)} and "
-                         "'auto'")
+    if method == "autotune":
+        from . import autotune
+        return REGISTRY[autotune.pick_method(kdt, pdts, n or (1 << 20),
+                                             device=device)]
     m = REGISTRY.get(method)
     if m is None:
         raise ValueError(f"unknown sort method {method!r}; "

@@ -61,7 +61,7 @@ def sort(keys, *payloads, ascending: bool | None = None,
             raise ValueError("payload streams must match keys shape")
 
     m = methods.resolve(method, keys.dtype, tuple(p.dtype for p in payloads),
-                        keys.shape[0])
+                        keys.shape[0], device=dev)
     keys_out, payloads_out = m.run(
         keys, payloads, ascending=ascending, stable=stable,
         block_threshold=block_threshold, digit_bits=digit_bits)
@@ -149,11 +149,11 @@ def sort_packed(packed, key_dtype, ascending: bool = True,
     kw = dict(ascending=ascending, stable=stable,
               block_threshold=block_threshold, digit_bits=digit_bits)
     if esize == ksize:
-        keys_out, _ = methods.resolve(method, key_dtype, (), n).run(
-            keys, (), **kw)
+        keys_out, _ = methods.resolve(method, key_dtype, (), n,
+                                      device=dev).run(keys, (), **kw)
     else:
         rows = torch.arange(n, dtype=torch.int64, device=dev)
-        m = methods.resolve(method, key_dtype, (rows.dtype,), n)
+        m = methods.resolve(method, key_dtype, (rows.dtype,), n, device=dev)
         keys_out, (perm,) = m.run(keys, (rows,), **kw)
         rest = rest.index_select(0, perm)
     key_bytes = keys_out.contiguous().view(torch.uint8).reshape(n, ksize)

@@ -38,8 +38,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     # parallel/ brought 4 (the package, dist_sort, dist_ops, multihost),
-    # the host engines 3 (ops/torch_baseline, utils/cpp_rng, utils/native)
-    assert n_modules >= 31, proc.stdout
+    # the host engines 3 (ops/torch_baseline, utils/cpp_rng, utils/native),
+    # the measurement layer 4 (perf, autotune, utils/profiling,
+    # models/scaling)
+    assert n_modules >= 35, proc.stdout
 
 
 def test_no_cuda_means_raise_unless_cpu_is_asked(monkeypatch):
@@ -156,14 +158,18 @@ def test_public_surface_mirrors_the_jax_package():
     assert set(tsrs.SORT_METHODS) == {"xla", "radix", "count", "rank",
                                       "quick", "quickseq", "seq", "torch",
                                       "cpp"}
-    assert tsrs.methods.NOT_YET_PORTED == ("autotune",)
+    assert tsrs.methods.NOT_YET_PORTED == ()
     assert os.path.basename(tsrs.__file__) == "__init__.py"
 
 
 @pytest.mark.parametrize("name,ported", [
     ("rank", True), ("quick", True), ("quickseq", True),
-    ("torch", True), ("cpp", True), ("autotune", False)])
-def test_which_jax_methods_are_ported(name, ported):
+    ("torch", True), ("cpp", True), ("autotune", True)])
+def test_which_jax_methods_are_ported(name, ported, monkeypatch, tmp_path):
+    from simd_radix_sort_tpu_torch import autotune
+
+    monkeypatch.setattr(autotune, "_CACHE_PATH", str(tmp_path / "c.json"))
+    monkeypatch.setattr(autotune, "_cache", None)
     keys = np.arange(8, dtype=np.int32)[::-1].copy()
     if ported:
         out = tsrs.sort(keys, method=name, device="cpu")

@@ -135,11 +135,20 @@ def test_resolve_auto_matches_jax():
     assert tmethods.COUNT_MIN_N_ADAPTIVE == counting.SMALL_MIN_N
 
 
-@pytest.mark.parametrize("name", tmethods.NOT_YET_PORTED)
-def test_unported_methods_raise(name):
-    assert name in jmethods.REGISTRY or name == "autotune"
-    with pytest.raises(ValueError, match="not yet ported"):
-        tsrs.sort(np.arange(8, dtype=np.int32), method=name, device="cpu")
+@pytest.mark.parametrize("name", ["autotune"])
+def test_unported_methods_raise(name, tmp_path, monkeypatch):
+    """No JAX method is left unported: the last, autotune, now resolves on
+    the CPU, and only a name neither package registers raises."""
+    from simd_radix_sort_tpu_torch import autotune
+
+    assert tmethods.NOT_YET_PORTED == ()
+    monkeypatch.setattr(autotune, "_CACHE_PATH", str(tmp_path / "c.json"))
+    monkeypatch.setattr(autotune, "_cache", None)
+    keys = np.arange(8, dtype=np.int32)[::-1].copy()
+    out = tsrs.sort(keys, method=name, device="cpu")
+    assert np.array_equal(_np(out), np.arange(8))
+    with pytest.raises(ValueError, match="unknown sort method"):
+        tsrs.sort(keys, method="no_such_method", device="cpu")
 
 
 def test_explicit_methods_and_config():
