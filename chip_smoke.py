@@ -87,6 +87,17 @@ Phases, each raising on failure:
      the scaling model's constants: an NCCL one-int all_reduce chain and
      self-exchange at P = 1, two Gloo ranks' exchange on the CPU, case
      (q)'s blocked final pass; then the projection with this run's anchor.
+  7. the workload scripts (simd_radix_sort_tpu_torch/workloads/) and the
+     examples (workloads_phase), each at its published size, gated, timed
+     and profiled, its K5 launches joining the kernels line's counts: the
+     headline (bench.py's u64+u64 sort at --n rows); configuration 3 (10^8
+     24-byte combined rows, sort_packed); configuration 4 (filter -> sort
+     -> aggregate over 10^9 rows in 10 chunks, fused and staged, the host's
+     waits counted); configuration 5's card leg (distributed sort of 10^8
+     Zipf(1.1) rows, "sort" and "blocked"; joins of 10^8 x 10^7 rows under
+     Zipf(1.1) and Zipf(1.5), the hot-key path on and off); the query
+     example (against its CPU run) and the distributed example on phase
+     5's ranks (against Gloo ranks).  Phase 7 must launch K5.
 
 Prints one {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -96,14 +107,17 @@ Exits non-zero, with no result, when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import os
-import socket
 import statistics
 import subprocess
 import sys
 import time
+
+from simd_radix_sort_tpu_torch.workloads.common import (
+    device_checksums, free_port, host_checksums, signed)
 
 HIST_SOURCE = "simd_radix_sort_tpu_torch/csrc/hist_kernels.cu"
 PARTITION_SOURCE = "simd_radix_sort_tpu_torch/csrc/partition_kernels.cu"
@@ -131,7 +145,6 @@ KERNEL_FUNCTIONS = {
 # non-tensor-core int32/float32 peak of an H100 SXM (NVIDIA data sheet);
 # every kernel here does a few integer operations per byte, far below it
 PEAK_OPS = 67e12
-MIX = 0x9E3779B97F4A7C15  # odd multiplier of bench.py's pair fingerprint
 
 
 def log(msg: str) -> None:
@@ -229,38 +242,6 @@ def flat(out):
     return [x for o in out for x in flat(o)]
 
 
-def signed(t):
-    """The same-width signed view of a tensor."""
-    import torch
-
-    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
-                   8: torch.int64}[t.element_size()])
-
-
-def wrap64(x: int) -> int:
-    return (int(x) + 2**63) % 2**64 - 2**63
-
-
-def xor_reduce(t) -> int:
-    import torch
-
-    while t.numel() > 1:
-        if t.numel() % 2:
-            t = torch.cat([t, t.new_zeros(1)])
-        h = t.numel() // 2
-        t = t[:h] ^ t[h:]
-    return int(t.item())
-
-
-def device_checksums(out):
-    """bench.py's gate on the card: the sum and xor of the keys and of the
-    key-payload pair fingerprint, mod 2^64 (independent of row order)."""
-    ko, po = (signed(t) for t in out)
-    pair = (ko * wrap64(MIX)) ^ po
-    return (int(ko.sum().item()), xor_reduce(ko),
-            int(pair.sum().item()), xor_reduce(pair))
-
-
 def time_calls(fn, reps: int, warmup: int = 2) -> float:
     """Median ms of `reps` calls of `fn`, each between CUDA events, after
     `warmup` calls."""
@@ -313,6 +294,39 @@ def profile_call(fn, kernels=()):
         if per and all(any(f in k for k in per) for f in want):
             return s.elapsed_time(e), per
     return s.elapsed_time(e), {}
+
+
+SPIN_CYCLES = 50_000_000  # the card's spin before timed launches: ~25 ms
+
+
+def event_device_ms(launches, rounds: int = 20) -> float:
+    """Device ms of one round of `launches`, bare kernel launches that run
+    nothing else on the card: CUDA events around `rounds` rounds that the
+    host queues while the card spins (`torch.cuda._sleep`), so no launch
+    waits for the host.  The spin doubles until it outlasts the queueing."""
+    import torch
+
+    for launch in launches:
+        launch()
+    torch.cuda.synchronize()
+    cycles = SPIN_CYCLES
+    for _ in range(6):
+        spun, s, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        spun.record()
+        torch.cuda._sleep(cycles)
+        s.record()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            for launch in launches:
+                launch()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        e.record()
+        e.synchronize()
+        if queued_ms < spun.elapsed_time(s):
+            return s.elapsed_time(e) / rounds
+        cycles *= 2
+    raise AssertionError(f"launches took {queued_ms:.1f} ms to queue, "
+                         "longer than the card's spin")
 
 
 # rows of case (p): the quick engine's 1024 buckets average <= its
@@ -980,12 +994,6 @@ def distributed_phase(rank: int, world: int, port: int, n: int, seed: int,
         dist.destroy_process_group()
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 # phase 6: the header row each table family must carry (the reference's,
 # perf.hpp:170-211, 383-385, 435, as the JAX package writes them)
 PERF_HEADERS = {
@@ -1322,6 +1330,205 @@ def measurement_phase(n: int, seed: int, reps: int, a_ms: float,
     return rec
 
 
+# phase 7: the workload scripts at their published sizes (BASELINE.json
+# configurations 3-5; the headline runs at --n)
+WORKLOAD_SIZES = {"combined": 10**8, "pipeline": 10**9, "chunks": 10,
+                  "groups": 1 << 20, "sort": 10**8, "probe": 10**8,
+                  "build": 10**7}
+
+
+def workloads_phase(n: int, seed: int, reps: int, world: int, dev,
+                    sizes=WORKLOAD_SIZES) -> dict:
+    """Phase 7: the workload scripts (simd_radix_sort_tpu_torch/workloads/)
+    and the examples on `dev` (the card; the CPU rehearses it at small
+    `sizes`), each built through its script's case, driven once with the
+    launch counts set to 0 just before and read just after, gated, then
+    timed and profiled as phase 3's cases are.  The query example is held
+    against its run on the CPU; the distributed one runs on `world` ranks
+    and is held against the same ranks on Gloo.  Returns the record; raises
+    on any failure, and when no case launched K5."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from simd_radix_sort_tpu_torch import methods
+    from simd_radix_sort_tpu_torch.examples import (
+        distributed_pipeline as dpipe, query_pipeline as qpipe)
+    from simd_radix_sort_tpu_torch.ops import _build
+    from simd_radix_sort_tpu_torch.ops import cuda_hist as ch
+    from simd_radix_sort_tpu_torch.ops import cuda_partition as cp
+    from simd_radix_sort_tpu_torch.workloads import (
+        combined_1e8, common, config5_scale, headline, pipeline_1e9)
+
+    on_card = dev.type == "cuda"
+    results = []
+
+    def quiet(msg):
+        pass
+
+    def time_ms(fn):
+        """CUDA events around each of a few calls, the median; one call on
+        the host clock when the CPU rehearses the phase."""
+        if on_card:
+            return time_calls(fn, max(3, reps // 2), warmup=1)
+        return common.timeit(fn, reps=1, warmup=0, device=dev) * 1e3
+
+    def drive(label, rows, call, gate, note=None, **extra):
+        """One case: driven once and gated, timed (CUDA events, median),
+        one call profiled.  `note(out)` adds what the output says."""
+        ch.reset_launches()
+        cp.reset_launches()
+        out = call()
+        common.fence(dev)
+        launches = {**ch.LAUNCHES, **cp.LAUNCHES}
+        gate(out)
+        if note is not None:
+            extra.update(note(out))
+        del out
+        ms, wall, per = time_ms(call), None, {}
+        if on_card:
+            wall, per = profile_call(
+                call, ["partition_pass"] if launches["partition_pass"] else [])
+        busy = sum(per.values())
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+        res = {"case": label, "n": rows, "ms": ms,
+               "rows_per_s": rows / (ms / 1e3),
+               "launches": {k: v for k, v in launches.items() if v},
+               "trace": {"wall_ms_profiled": wall,
+                         "device_busy_ms": busy if per else None,
+                         "idle_share": 1 - busy / ms if per else None,
+                         "top": [[k[:90], v] for k, v in top]}, **extra}
+        results.append(res)
+        log(f"phase 7: {json.dumps(res)}")
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # the headline: bench.py's u64+u64 sort, "auto"
+    t0 = time.perf_counter()
+    keys, pay = headline.make_data(n, seed)
+    method, call, gate = headline.case(keys, pay, "auto", dev)
+    del keys, pay
+    if method != "xla":
+        raise AssertionError(f"headline: auto resolved to {method}")
+    drive("headline u64+u64 auto", n, call, gate, method=method,
+          setup_s=time.perf_counter() - t0)
+
+    # configuration 3: 24-byte combined rows through sort_packed, and its
+    # four steps (ops/sort.py: the key bytes copied out, the sort of the key
+    # with the row index, the gather of the 16 payload bytes, the cat),
+    # each timed alone on the same table
+    rows = sizes["combined"]
+    call, gate = combined_1e8.case(rows, dev)
+    packed = combined_1e8.gen_packed(rows, dev)
+    sorter = methods.resolve("auto", np.uint64, (np.int64,), rows)
+    row_ids = torch.arange(rows, device=dev)
+
+    def sort_keys():
+        return sorter.run(packed[:, :8].reshape(-1).view(torch.uint64),
+                          (row_ids,), ascending=True, stable=False,
+                          block_threshold=None, digit_bits=None)
+
+    ko, (perm,) = sort_keys()
+    key_bytes = ko.view(torch.uint8).reshape(rows, 8)
+    rest = packed[:, 8:].index_select(0, perm)
+    steps = {name: time_ms(fn) for name, fn in (
+        ("key copy", lambda: packed[:, :8].reshape(-1)),
+        ("key copy + sort with row index", sort_keys),
+        ("gather of 16-byte rows", lambda: packed[:, 8:].index_select(
+            0, perm)),
+        ("cat", lambda: torch.cat([key_bytes, rest], dim=1)))}
+    del packed, row_ids, ko, perm, key_bytes, rest
+    drive("config 3 combined u64+2xu64 sort_packed", rows, call, gate,
+          steps_ms=steps)
+
+    # configuration 4: filter -> sort -> aggregate, fused and staged
+    rows, chunks, groups = sizes["pipeline"], sizes["chunks"], sizes["groups"]
+    for mode in pipeline_1e9.MODES:
+        call, gate = pipeline_1e9.case(rows, chunks, groups, mode, dev)
+        syncs = {}
+        if on_card:  # where the host waits, in one chunk and in one pass
+            chunk = pipeline_1e9.make_chunk_fn(rows // chunks, groups, mode,
+                                               dev)
+            for what, fn in (("chunk", lambda: chunk(0)), ("pass", call)):
+                at = common.host_syncs(fn)[1]
+                syncs[what] = len(at)
+                syncs[what + "_at"] = {a: at.count(a) for a in set(at)}
+            del chunk
+        drive(f"config 4 pipeline {mode}", rows, call, gate,
+              note=lambda out: {"pipeline_s": out[0],
+                                "groups_out": int(out[1].size),
+                                "rows_kept": int(out[3].sum())},
+              chunks=chunks, groups=groups, host_syncs=syncs)
+        del call, gate
+
+    # configuration 5: the card leg on a process group of one
+    t0 = time.perf_counter()
+    with common.one_rank_group(dev):
+        cases = config5_scale.card_cases(sizes["sort"], sizes["probe"],
+                                         sizes["build"], dev)
+        setup_s = time.perf_counter() - t0
+        for label, rows, skew, call, gate in cases:
+            drive(f"config 5 {label}", rows, call, gate,
+                  note=(lambda out: {"hot_stats": config5_scale.hot_record(
+                      out[5])} if len(out) == 6 else {}),
+                  skew=skew, setup_s=setup_s)
+        del cases, call, gate
+
+    # the query example, held against its run on the CPU
+    want = qpipe.main("cpu", say=quiet)
+
+    def gate_query(got):
+        for key, w in want.items():
+            g = got[key]
+            if key == "sorted_amounts":  # an unstable sort: pairs as a set
+                g, w = (a[np.lexsort((a, want["sorted_keys"]))]
+                        for a in (g, w))
+            ok = (np.allclose(g, w, rtol=1e-5, atol=0)
+                  if np.asarray(w).dtype.kind == "f"
+                  else np.array_equal(g, w))
+            if not ok:
+                raise AssertionError(f"query example {key}: the card and "
+                                     "the CPU differ")
+
+    drive("example query_pipeline", qpipe.N_ROWS,
+          lambda: qpipe.main(dev, say=quiet), gate_query)
+
+    # the distributed example on `world` ranks, held against Gloo ranks
+    def same(label, got, want):
+        keys = [k for k in want if k not in ("k5_launches",
+                                             "sorted_customers")]
+        pairs = [sorted(zip(r["sorted_amounts"], r["sorted_customers"]))
+                 for r in (got, want)]
+        if any(got[k] != want[k] for k in keys) or pairs[0] != pairs[1]:
+            raise AssertionError(f"{label}: the card and the CPU differ")
+
+    if world == 1:
+        with common.one_rank_group(dev):
+            gloo = dist.new_group(backend="gloo")
+            want_d = dpipe.run(group=gloo, device="cpu", say=quiet)
+            drive("example distributed_pipeline",
+                  dpipe.make_tables(1)[0].shape[0],
+                  lambda: dpipe.run(device=dev, say=quiet),
+                  lambda got: same("distributed example", got, want_d),
+                  ranks=1)
+    else:
+        t0 = time.perf_counter()
+        got = dpipe.spawn(world, dev, str(_build.BUILD_DIR / "dpipe.json"))
+        ms = (time.perf_counter() - t0) * 1e3
+        same("distributed example", got, dpipe.spawn(
+            world, "cpu", str(_build.BUILD_DIR / "dpipe_cpu.json")))
+        res = {"case": "example distributed_pipeline", "n": got["rows"],
+               "ranks": world, "ms_spawned": ms,
+               "launches": {"partition_pass": got["k5_launches"]}}
+        results.append(res)
+        log(f"phase 7: {json.dumps(res)}")
+
+    k5 = sum(r["launches"].get("partition_pass", 0) for r in results)
+    if on_card and k5 < 1:
+        raise AssertionError("phase 7 launched K5 no time")
+    return {"cases": results, "k5_launches": k5}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000)
@@ -1554,16 +1761,6 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, {**ch.LAUNCHES, **cp.LAUNCHES}
 
-    def bench_checksums(keys, pay):
-        """bench.py's gate on the host input: key sum and xor, and the sum
-        and xor of the key-payload pair fingerprint, all mod 2^64."""
-        with np.errstate(over="ignore"):
-            pair_in = (keys * np.uint64(MIX)) ^ pay
-            return (wrap64(keys.sum(dtype=np.uint64)),
-                    wrap64(np.bitwise_xor.reduce(keys)),
-                    wrap64(pair_in.sum(dtype=np.uint64)),
-                    wrap64(np.bitwise_xor.reduce(pair_in)))
-
     def as_tuple(out):
         if isinstance(out, torch.Tensor):
             return (out,)
@@ -1598,7 +1795,7 @@ def main() -> int:
     # (a) u64 key + u64 payload: the comparison engine; (f), (g) reuse it
     keys = D.make_keys(n, np.uint64, D.Distribution.UNIFORM, args.seed)
     (pay,) = D.make_payloads(keys, [np.uint64])
-    sums64 = bench_checksums(keys, pay)
+    sums64 = host_checksums(keys, pay)
     k64, (p64,) = stage(keys, (pay,))
     del keys, pay
 
@@ -1865,37 +2062,68 @@ def main() -> int:
         order = torch.argsort(mask, stable=True)
         return [signed(s).index_select(0, order) for s in streams]
 
+    def fill_bare(hist, size, base, dtype):
+        return [lambda: fill_at_tile(hist, size, base, dtype,
+                                     ch.FILL_TILE_BYTES)], None
+
+    def k5_bare(streams, mask, block=cp.PART_BLOCK):
+        """K5's two kernels as bare launches, the count and the scatter,
+        with the prefix the wrapper builds between them made once here;
+        and the scatter's outputs."""
+        size = mask.numel()
+        counts = torch.empty(-(-size // block), dtype=torch.int32,
+                             device=dev)
+
+        def count():
+            _build.launch("srs_partition_count", dev, mask.data_ptr(), size,
+                          block, counts.data_ptr())
+
+        count()
+        left_off = ch.prefix_counts(counts)
+        outs = [torch.empty_like(s) for s in streams]
+        k = len(streams)
+        ptrs = ((ctypes.c_void_p * k)(*(s.data_ptr() for s in streams)),
+                (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs)),
+                (ctypes.c_int * k)(*(s.element_size() for s in streams)))
+
+        def scatter():
+            _build.launch("srs_partition_scatter", dev, mask.data_ptr(), size,
+                          block, left_off.data_ptr(), k, *ptrs)
+
+        return [count, scatter], outs
+
     # (name, shape, kernel, plain, library call, its description, bytes,
-    # operations)
+    # operations, bare launches of K4-K6 for their event-timed device time)
     shapes = [
         ("histogram", "uint8 n=%d k=256 (case b)" % n,
          lambda: ch.histogram(u8, 256, 0x80),
          lambda: ch.histogram_plain(u8, 256, 0x80),
          lambda: torch.bincount(u8.view(torch.uint8), minlength=256),
-         "bincount", n + 256 * 4, n),
+         "bincount", n + 256 * 4, n, None),
         ("histogram", "int32 n=%d k=1024 (case d)" % n,
          lambda: ch.histogram(i32w, 1024, -500),
          lambda: ch.histogram_plain(i32w, 1024, (-500) & 0xFFFFFFFF),
          lambda: torch.bincount(i32w + 500, minlength=1024),
-         "bincount", 4 * n + 1024 * 4, n),
+         "bincount", 4 * n + 1024 * 4, n, None),
         ("minmax_hist16", "int32 n=%d (cases c-e)" % n,
          lambda: ch.minmax_hist16(i32, flip32),
          lambda: ch.minmax_hist16_plain(i32, flip32),
          lambda: (torch.aminmax(i32), torch.bincount(i32 & 15,
                                                      minlength=16)),
-         "aminmax + bincount", 4 * n + 18 * 4, n),
+         "aminmax + bincount", 4 * n + 18 * 4, n, None),
         ("tiny_sort16", "int32 ZeroOne n=%d (case c)" % n,
          lambda: ch.tiny_sort16(i32, flip32),
          lambda: ch.tiny_sort16_plain(i32, flip32),
          lambda: torch.sort(i32).values,
-         "sort", 8 * n, 2 * n),
+         "sort", 8 * n, 2 * n, None),
         ("fill_runs", "int8 n=%d k=256 (case b)" % n,
          lambda: ch.fill_runs(h256, n, 0x80, torch.int8),
          lambda: ch.fill_runs_plain(h256, n, 0x80, torch.int8),
          lambda: torch.repeat_interleave(
              torch.arange(256, device=dev).to(torch.int8),
              h256.to(torch.int64), output_size=n),
-         "repeat_interleave", n + 257 * 8, n),
+         "repeat_interleave", n + 257 * 8, n,
+         lambda: fill_bare(h256, n, 0x80, torch.int8)),
         ("fill_runs", "int32 n=%d k=1024 (case d)" % n,
          lambda: ch.fill_runs(h1024, n, -500, torch.int32),
          lambda: ch.fill_runs_plain(h1024, n, (-500) & 0xFFFFFFFF,
@@ -1903,7 +2131,8 @@ def main() -> int:
          lambda: torch.repeat_interleave(
              torch.arange(-500, 524, device=dev, dtype=torch.int32),
              h1024.to(torch.int64), output_size=n),
-         "repeat_interleave", 4 * n + 1025 * 8, n),
+         "repeat_interleave", 4 * n + 1025 * 8, n,
+         lambda: fill_bare(h1024, n, -500, torch.int32)),
         # the mask read once, two int64 streams read once and written once
         ("partition_pass",
          "2 x int64 streams n=%d, random mask (one pass of case g)" % n,
@@ -1911,7 +2140,7 @@ def main() -> int:
          lambda: cp.partition_pass_plain(part, part_mask),
          lambda: argsort_gather(part, part_mask),
          "argsort(mask, stable=True) + one index_select per stream",
-         33 * n, n),
+         33 * n, n, lambda: k5_bare(part, part_mask)),
         # the Q6 filter's pass (case k): an int32 and three float64 streams
         ("partition_pass",
          "int32 + 3 x float64 streams n=%d, Q6 mask (case k)" % n_q6,
@@ -1919,16 +2148,17 @@ def main() -> int:
          lambda: cp.partition_pass_plain(q6_streams, q6_keep),
          lambda: argsort_gather(q6_streams, q6_keep),
          "argsort(mask, stable=True) + one index_select per stream",
-         57 * n_q6, n_q6),
+         57 * n_q6, n_q6, lambda: k5_bare(q6_streams, q6_keep)),
         ("fill_runs_packed", "uint8 n=%d k=256 (case j)" % n4,
          lambda: ch.fill_runs_packed(h256u, n4),
          lambda: ch.fill_runs_packed_plain(h256u, n4),
          lambda: torch.repeat_interleave(u8_values, h256u.to(torch.int64),
                                          output_size=n4),
-         "repeat_interleave", n4 + 257 * 8, n4),
+         "repeat_interleave", n4 + 257 * 8, n4,
+         lambda: fill_bare(h256u, n4, 0, None)),
     ]
     timings = []
-    for name, shape, kern, plain, lib, lib_call, nbytes, ops in shapes:
+    for name, shape, kern, plain, lib, lib_call, nbytes, ops, bare in shapes:
         # plain, kernel, kernel, plain: the two versions alternate
         p1, k1 = time_ms(plain), time_ms(kern)
         k2, p2 = time_ms(kern), time_ms(plain)
@@ -1940,8 +2170,18 @@ def main() -> int:
         if name in ("fill_runs", "fill_runs_packed") and len(per) > 1:
             raise AssertionError(f"{name}: one call ran {sorted(per)} on "
                                  "the card, not its kernel alone")
+        profiled = sum(mine.values()) if per else None
+        events = None
+        if bare is not None:  # K4-K6: this run's device time, always
+            launches, outs = bare()
+            events = event_device_ms(launches)
+            if outs is not None:
+                hold(name, outs, plain(), f"{shape} bare launches")
+            del launches, outs
         t = {"name": name, "shape": shape, "ms": min(k1, k2),
-             "device_ms": sum(mine.values()) if per else None,
+             "device_ms": profiled if events is None else events,
+             "device_ms_from": "profiler" if events is None else "events",
+             "device_ms_profiler": profiled,
              "device_ms_by_function": {k[:80]: v for k, v in mine.items()},
              "ms_runs": [k1, k2], "plain_ms": min(p1, p2),
              "plain_ms_runs": [p1, p2], "library_ms": lib_ms,
@@ -1951,9 +2191,8 @@ def main() -> int:
         log(f"phase 4: {json.dumps(t)}")
 
     # K4 and K6 at tiles of 4-64 KiB, past the wrappers: the kernel's
-    # device time in one call from the profiler (back-to-back launches
-    # between events would time the host's launch rate), the tiles taken in
-    # turn forwards and backwards, twice
+    # device time from events around launches queued while the card spins,
+    # the tiles taken in turn forwards and backwards, twice
     fill_shapes = [("fill_runs", "int8 k=256 (case b)", h256, n, 0x80,
                     torch.int8),
                    ("fill_runs", "int32 k=1024 (case d)", h1024, n, -500,
@@ -1971,9 +2210,8 @@ def main() -> int:
                  (want,), f"{shape} tile={tile}")
         del want
         for tile in (*tiles, *reversed(tiles)) * 2:
-            _, per = device_profile(
-                lambda: fill_at_tile(hist, size, base, dtype, tile), (name,))
-            tile_ms[(shape, tile)].append(sum(per.values()) if per else None)
+            tile_ms[(shape, tile)].append(event_device_ms(
+                [lambda: fill_at_tile(hist, size, base, dtype, tile)]))
     tile_sweep = [{"name": name, "shape": shape, "tile_bytes": tile,
                    "shipped": tile == ch.FILL_TILE_BYTES,
                    "device_ms_runs": tile_ms[(shape, tile)]}
@@ -2017,6 +2255,17 @@ def main() -> int:
     log(f"phase 6: the measurement layer in {measurement['seconds']:.1f} s, "
         f"launches {json.dumps(measurement['launches'])}")
 
+    # ---- phase 7: the workload scripts and the examples ---------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    workloads = workloads_phase(n, args.seed, args.reps, world, dev)
+    for r in workloads["cases"]:
+        for name, count in r["launches"].items():
+            main_launches[name] += count
+    workloads["seconds"] = time.perf_counter() - t0
+    log(f"phase 7: the workload scripts in {workloads['seconds']:.1f} s, "
+        f"{workloads['k5_launches']} K5 launches")
+
     kernels = []
     for name, (replaces, source) in TPU_KERNELS.items():
         t = next(x for x in timings if x["name"] == name)
@@ -2043,6 +2292,7 @@ def main() -> int:
               "main_path": results, "host_engines": host_engines,
               "cpu_card_agree": agreed,
               "distributed": distributed, "measurement": measurement,
+              "workloads": workloads,
               "seconds": time.perf_counter() - t_start}
     if args.out:
         with open(args.out, "w") as f:

@@ -20,12 +20,18 @@ from simd_radix_sort_tpu_torch.utils import common, interop
 REPO = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = """
-import pkgutil, sys
+import os, pkgutil, sys
 import simd_radix_sort_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     __import__(m.name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "simd_radix_sort_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "simd_radix_sort_tpu",
+                                    "benchlib"))
+# nothing of the JAX repository's scripts either (scripts/, examples/)
+jax_dirs = tuple(os.path.join(os.getcwd(), d) + os.sep
+                 for d in ("scripts", "examples"))
+bad += sorted(name for name, mod in list(sys.modules.items())
+              if (getattr(mod, "__file__", None) or "").startswith(jax_dirs))
 print(len([m for m in sys.modules if m.startswith(pkg.__name__)]), bad)
 sys.exit(1 if bad else 0)
 """
@@ -40,8 +46,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # parallel/ brought 4 (the package, dist_sort, dist_ops, multihost),
     # the host engines 3 (ops/torch_baseline, utils/cpp_rng, utils/native),
     # the measurement layer 4 (perf, autotune, utils/profiling,
-    # models/scaling)
-    assert n_modules >= 35, proc.stdout
+    # models/scaling), the workload scripts 6 (workloads/ and its common,
+    # headline, combined_1e8, pipeline_1e9, config5_scale) and the
+    # examples 3 (examples/ and its query_pipeline, distributed_pipeline)
+    assert n_modules >= 44, proc.stdout
 
 
 def test_no_cuda_means_raise_unless_cpu_is_asked(monkeypatch):
