@@ -98,6 +98,12 @@ Phases, each raising on failure:
      Zipf(1.1) and Zipf(1.5), the hot-key path on and off); the query
      example (against its CPU run) and the distributed example on phase
      5's ranks (against Gloo ranks).  Phase 7 must launch K5.
+  8. the measurement-campaign drivers (drivers_phase) through their main:
+     perf_suite's default tier at --n 65536, knob_epoch --n 16384,
+     remeasure_noise and run_test_matrix 1000, each into build/srs_torch/
+     drivers/<name>/: each must exit 0, every table must carry the
+     reference's header, the matrix must print ALL PASSED; their K1-K5
+     launches join the kernels line's counts.
 
 Prints one {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1529,6 +1535,102 @@ def workloads_phase(n: int, seed: int, reps: int, world: int, dev,
     return {"cases": results, "k5_launches": k5}
 
 
+# phase 8: the measurement-campaign drivers at a smoke grid
+DRIVER_SIZES = {"suite_n": 65536, "knob_n": 16384, "matrix_max": 1000}
+
+
+def reference_header(name: str) -> str:
+    """The header row a table of this name must carry (PERF_HEADERS; a
+    sweep's lists its methods after number_of_elements)."""
+    for prefix, family in (("digits-", "perf_test_block"),
+                           ("thresh-quick-", "perf_test_thresh"),
+                           ("speedup-", "perf_test_speedup"),
+                           ("packed-", "perf_test_packed"),
+                           ("combined-", "perf_test_combined")):
+        if name.startswith(prefix):
+            return PERF_HEADERS[family]
+    if name.startswith("tpe-"):
+        return "number_of_elements"
+    return PERF_HEADERS["perf_test"]
+
+
+def drivers_phase(dev, sizes=DRIVER_SIZES) -> dict:
+    """Phase 8: the measurement-campaign drivers (workloads/perf_suite,
+    knob_epoch, remeasure_noise, run_test_matrix) through their `main` on
+    `dev` (the card; the CPU rehearses it at small `sizes`), each into a
+    directory of its own under build/, its output in a log there.  Each
+    must exit 0 and every table it wrote must carry the reference's
+    header; run_test_matrix must print ALL PASSED.  Returns the record
+    (seconds, tables and K1-K5 launches a driver); raises on any
+    failure."""
+    import contextlib
+
+    from simd_radix_sort_tpu_torch import perf
+    from simd_radix_sort_tpu_torch.ops import _build
+    from simd_radix_sort_tpu_torch.ops import cuda_hist as ch
+    from simd_radix_sort_tpu_torch.ops import cuda_partition as cp
+    from simd_radix_sort_tpu_torch.workloads import (
+        knob_epoch, perf_suite, remeasure_noise, run_test_matrix)
+
+    root = _build.BUILD_DIR / "drivers"
+    on = [] if dev.type == "cuda" else ["--device", "cpu"]
+    out_dir = perf.OUT_DIR
+    results = []
+    try:
+        for label, driver, argv in (
+                ("perf_suite", perf_suite, ["--n", str(sizes["suite_n"])]),
+                ("knob_epoch", knob_epoch, ["--n", str(sizes["knob_n"])]),
+                ("remeasure_noise", remeasure_noise, []),
+                ("run_test_matrix", run_test_matrix,
+                 [str(sizes["matrix_max"])])):
+            d = root / label
+            d.mkdir(parents=True, exist_ok=True)
+            for old in d.glob("*.dat"):
+                old.unlink()
+            perf.OUT_DIR = str(d)
+            ch.reset_launches()
+            cp.reset_launches()
+            t0 = time.perf_counter()
+            with open(d / "stdout.log", "w") as f, \
+                    contextlib.redirect_stdout(f):
+                rc = driver.main(argv + on)
+            seconds = time.perf_counter() - t0
+            launches = {**ch.LAUNCHES, **cp.LAUNCHES}
+            lines = (d / "stdout.log").read_text().splitlines()
+            if rc != 0:
+                raise AssertionError(f"phase 8: {label} {argv} exited {rc}: "
+                                     f"{lines[-20:]}")
+            tables = {}
+            for path in sorted(d.glob("*.dat")):
+                head = path.read_text().splitlines()
+                want = reference_header(path.name)
+                sweep = (want == "number_of_elements"
+                         and head[0].startswith(want + " "))
+                if head[0] != want and not sweep:
+                    raise AssertionError(f"phase 8: {path}: header "
+                                         f"{head[0]!r}, not {want!r}")
+                if len(head) < 2:
+                    raise AssertionError(f"phase 8: {path}: no rows")
+                tables[path.name] = len(head) - 1
+            res = {"driver": label, "argv": argv, "seconds": seconds,
+                   "tables": len(tables), "table_rows": sum(tables.values()),
+                   "launches": launches, "last_line": lines[-1]}
+            if label == "run_test_matrix":
+                if lines[-1] != "ALL PASSED":
+                    failed = [x for x in lines if x.startswith("FAILED")]
+                    raise AssertionError(f"phase 8: run_test_matrix: "
+                                         f"{failed[:20]}")
+                res["cells_passed"] = sum(x.startswith("passed ")
+                                          for x in lines)
+            elif not tables:
+                raise AssertionError(f"phase 8: {label} wrote no table")
+            results.append(res)
+            log(f"phase 8: {json.dumps(res)}")
+    finally:
+        perf.OUT_DIR = out_dir
+    return {"drivers": results}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000)
@@ -2266,6 +2368,19 @@ def main() -> int:
     log(f"phase 7: the workload scripts in {workloads['seconds']:.1f} s, "
         f"{workloads['k5_launches']} K5 launches")
 
+    # ---- phase 8: the measurement-campaign drivers -------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    drivers = drivers_phase(dev)
+    for r in drivers["drivers"]:
+        for name, count in r["launches"].items():
+            main_launches[name] += count
+    drivers["seconds"] = time.perf_counter() - t0
+    drivers["launches"] = {k: sum(r["launches"][k] for r in drivers["drivers"])
+                           for k in main_launches}
+    log(f"phase 8: the measurement drivers in {drivers['seconds']:.1f} s, "
+        f"launches {json.dumps(drivers['launches'])}")
+
     kernels = []
     for name, (replaces, source) in TPU_KERNELS.items():
         t = next(x for x in timings if x["name"] == name)
@@ -2292,7 +2407,7 @@ def main() -> int:
               "main_path": results, "host_engines": host_engines,
               "cpu_card_agree": agreed,
               "distributed": distributed, "measurement": measurement,
-              "workloads": workloads,
+              "workloads": workloads, "drivers": drivers,
               "seconds": time.perf_counter() - t_start}
     if args.out:
         with open(args.out, "w") as f:

@@ -149,26 +149,43 @@ register(SortMethod("cpp", _run_cpp, _supports_all, device=False))
 # Names the JAX package registers that have no port yet.
 NOT_YET_PORTED = ()
 
-# Engine crossovers of the static "auto" policy: the JAX package's values
-# (methods.py:191-194), measured on a TPU.  They are placeholders here until
-# the H100 measures its own.
+# Engine crossovers of the static "auto" policy: the smallest n at which
+# keys-only integer keys of each width go to count.  Each is held to the
+# tables in bench_out_h100/ (NVIDIA H100 80GB HBM3 at 700 W; CARD.json
+# there names the commands) by tests/test_torch_auto_policy.py, and moved
+# only as far as those tables require from the JAX package's TPU values
+# (methods.py:191-194).
+# 1-byte keys: the TPU's 2^17 holds.  In large_n/tpe-uint8-Uniform.dat the
+# geometric mean of count/xla over the rows from 2^17 to 2^27 is 0.56
+# (count 1.4-2.0x slower up to 2^20, where a call is a few launches, and
+# 0.16-0.69x from 2^21 on).
 COUNT_CROSSOVER_N_1BYTE = 1 << 17
-# == counting.SMALL_MIN_N, the engine's own 1024-bucket branch gate
+# 4-byte keys: the TPU's 2^21 (counting.SMALL_MIN_N, the engine's own
+# 1024-bucket branch gate) holds: int32 and uint32 count medians over the
+# 8 distributions are 1.13-1.27x the best engine at 2^22-2^24 rows.
 COUNT_MIN_N_ADAPTIVE = 1 << 21
+# 2-byte keys: int16 count is 1.54-2.10x xla on all 8 distributions at
+# 2^22 rows (median 1.68) and has a median of 1.42-1.46 at 2^23 (two
+# epochs), 1.27 at 2^24.  One floor for both widths cannot meet the rule
+# at 2^23, where xla on 4-byte Zero/ZeroOne keys is up to 3.1x count
+# (above the rule's 2.5 bound), so the TPU policy's one adaptive floor is
+# split by width.
+COUNT_MIN_N_ADAPTIVE_2BYTE = 1 << 24
 
 
 def resolve(method: str, key_dtype, payload_dtypes: Sequence, n: int | None,
             device=None) -> SortMethod:
     """Pick a method; "auto" chooses the engine by key width, payloads and
-    row count exactly as the JAX package's static policy does; "autotune"
-    measures the candidates on `device` (None means "cuda"), which only it
-    reads."""
+    row count as the JAX package's static policy does, with a floor of its
+    own for 2-byte keys (above); "autotune" measures the candidates on
+    `device` (None means "cuda"), which only it reads."""
     kdt = common.np_dtype(key_dtype)
     pdts = tuple(common.np_dtype(d) for d in payload_dtypes)
     if method == "auto":
         if _count_supports(kdt, pdts, n):
-            floor = (COUNT_CROSSOVER_N_1BYTE if kdt.itemsize == 1
-                     else COUNT_MIN_N_ADAPTIVE)
+            floor = {1: COUNT_CROSSOVER_N_1BYTE,
+                     2: COUNT_MIN_N_ADAPTIVE_2BYTE}.get(kdt.itemsize,
+                                                        COUNT_MIN_N_ADAPTIVE)
             if n is None or n >= floor:
                 return REGISTRY["count"]
         return REGISTRY["xla"]

@@ -31,7 +31,8 @@ from . import cuda_hist
 # Bucket budget of the adaptive branch (counting.py:46).
 K_MAX_RANGE = 1024
 # Below this size the adaptive path skips from tiny-range straight to the
-# comparison sort (counting.py:54); methods.COUNT_MIN_N_ADAPTIVE equals it.
+# comparison sort (counting.py:54); "auto" sends no 2- or 4-byte keys to
+# count below it (methods.COUNT_MIN_N_ADAPTIVE, COUNT_MIN_N_ADAPTIVE_2BYTE).
 SMALL_MIN_N = 1 << 21
 # Width of the tiny-range sort's residue histogram.
 K_TINY_RANGE = 16

@@ -49,7 +49,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # models/scaling), the workload scripts 6 (workloads/ and its common,
     # headline, combined_1e8, pipeline_1e9, config5_scale) and the
     # examples 3 (examples/ and its query_pipeline, distributed_pipeline)
-    assert n_modules >= 44, proc.stdout
+    # and the measurement drivers 5 (workloads' perf_suite, knob_epoch,
+    # remeasure_noise, run_test_matrix, campaign)
+    assert n_modules >= 49, proc.stdout
 
 
 def test_no_cuda_means_raise_unless_cpu_is_asked(monkeypatch):

@@ -104,10 +104,8 @@ def test_count_small_branch_at_2_21_matches_jax(monkeypatch):
     rng = np.random.default_rng(9)
     keys = rng.integers(-400, 400, 1 << 21).astype(np.int16)
     for asc in (True, False):
-        assert tmethods.resolve("auto", keys.dtype, (), keys.size).name \
-            == "count"
-        got = tsrs.sort(keys, ascending=asc, device="cpu")
-        want = jsrs.sort(keys, ascending=asc)
+        got = tsrs.sort(keys, ascending=asc, method="count", device="cpu")
+        want = jsrs.sort(keys, ascending=asc, method="count")
         assert _bytes_equal(_np(got), want)
     assert ks == [counting.K_MAX_RANGE] * 2
 
@@ -122,17 +120,31 @@ def test_count_wide_range_falls_back_to_comparison_sort(monkeypatch):
     assert calls == []
 
 
-def test_resolve_auto_matches_jax():
+def test_resolve_auto_matches_jax(monkeypatch):
+    """The port's policy has the JAX package's form, with the adaptive
+    floor split by key width: given the port's own crossovers for the key's
+    width (measured on an H100, tests/test_torch_auto_policy.py), the JAX
+    policy picks the same engine for every (dtype, payloads) case, at and
+    around both packages' crossovers."""
+    c1 = tmethods.COUNT_CROSSOVER_N_1BYTE
+    floors = {2: tmethods.COUNT_MIN_N_ADAPTIVE_2BYTE,
+              4: tmethods.COUNT_MIN_N_ADAPTIVE}
+    j1, ja = jmethods.COUNT_CROSSOVER_N_1BYTE, jmethods.COUNT_MIN_N_ADAPTIVE
+    sizes = [0, 4096, 10**8, None]
+    for c in (c1, *floors.values(), j1, ja):
+        sizes += [c - 1, c]
+    monkeypatch.setattr(jmethods, "COUNT_CROSSOVER_N_1BYTE", c1)
     for kdt in DTYPES:
+        monkeypatch.setattr(jmethods, "COUNT_MIN_N_ADAPTIVE",
+                            floors.get(np.dtype(kdt).itemsize, 0))
         for pays in ((), (np.uint32,), (np.float64, np.uint8)):
-            for n in (0, 4096, (1 << 17) - 1, 1 << 17, (1 << 21) - 1,
-                      1 << 21, 10**8, None):
+            for n in sizes:
                 want = jmethods.resolve("auto", kdt, pays, n).name
                 assert tmethods.resolve("auto", kdt, pays, n).name == want, \
                     (kdt, pays, n)
-    assert tmethods.COUNT_CROSSOVER_N_1BYTE == jmethods.COUNT_CROSSOVER_N_1BYTE
-    assert tmethods.COUNT_MIN_N_ADAPTIVE == jmethods.COUNT_MIN_N_ADAPTIVE
-    assert tmethods.COUNT_MIN_N_ADAPTIVE == counting.SMALL_MIN_N
+    # the 1-byte and 4-byte crossovers are the TPU's; only 2-byte keys moved
+    assert (c1, floors[4]) == (j1, ja)
+    assert min(floors.values()) >= counting.SMALL_MIN_N
 
 
 @pytest.mark.parametrize("name", ["autotune"])
