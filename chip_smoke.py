@@ -10,12 +10,15 @@ Phases, each raising on failure:
      ragged, misaligned and edge cases; K6 also against K4's uint8 output.
      K4 and K6 also where runs meet their tiles' edges
      (cuda_hist.tile_edge_cases), at the tile the wrappers launch with and
-     at a 64-byte tile.
+     at a 64-byte tile; K1 also on the inputs that could break its
+     counters (k1_inputs), at every width and k.
   3. main paths at --n rows (default 10^8), data made from --seed with the
      port's utils/data.py, each case driven with the launch counts set to 0
      just before it and read just after:
        (a)-(e) `sort(...)` with method="auto", checking the engine it
-               resolves to and its output on the device;
+               resolves to and its output on the device; (b2), (b3) as
+               (b) on uint8 Zero and ReverseSorted, each also timed on
+               xla;
        (f)     `sort(..., method="radix")`, u64 key + u64 payload;
        (g)     `radix.sort_arrays(..., engine="pallas")`, the same data:
                64 K5 launches;
@@ -50,7 +53,9 @@ Phases, each raising on failure:
      case (rows/s and fraction of the roofline model); one further call of
      each under torch.profiler gives device time by kernel and the
      device's idle share of the call.  K4 and K6 are also timed at tiles
-     of 4-64 KiB, and each of their calls must be one kernel on the card.
+     of 4-64 KiB, and each of their calls must be one kernel on the card;
+     K1 at the eight distributions the count engine hands it (K1_SHAPES,
+     k1_shape_timings).
   5. the distributed tier (simd_radix_sort_tpu_torch/parallel/) on P NCCL
      ranks, one card each, P the largest of 1, 2, 4 that the machine has
      (P = 1 runs in this process, P > 1 in spawned ones), each rank making
@@ -333,6 +338,138 @@ def event_device_ms(launches, rounds: int = 20) -> float:
         cycles *= 2
     raise AssertionError(f"launches took {queued_ms:.1f} ms to queue, "
                          "longer than the card's spin")
+
+
+# phase 4: K1 at the distributions the main path hands it, as
+# (label, key dtype, distribution, k).  S1-S5: sort() of 1-byte keys, which
+# auto sends to count from 2^17 rows (k = 256); S6-S8: int32 keys of range
+# in [16, 1024), count's adaptive branch (k = 1024).
+K1_SHAPES = (
+    ("S1 uint8 Uniform (case b)", "uint8", "Uniform", 256),
+    ("S2 uint8 Zero", "uint8", "Zero", 256),
+    ("S3 uint8 ZeroOne", "uint8", "ZeroOne", 256),
+    ("S4 uint8 Sorted", "uint8", "Sorted", 256),
+    ("S5 uint8 ReverseSorted", "uint8", "ReverseSorted", 256),
+    ("S6 int32 [-500,500) (case d)", "int32", "[-500,500)", 1024),
+    ("S7 int32 Zipf(1.1) ranks mod 1000", "int32", "zipf", 1024),
+    ("S8 int32 99% one value", "int32", "status", 1024),
+)
+K1_SPREAD_RUNS = 3  # event_device_ms measurements of each K1 shape
+
+
+def k1_keys(dtype: str, dist: str, n: int, seed: int):
+    """The NumPy keys of a K1_SHAPES row: the reference's distributions
+    (utils/data.py) for uint8; case (d)'s draw; Zipf(1.1) ranks modulo
+    1000 (the hot key about 9% of rows) by config 5's rule; or 99% one
+    value and 1% uniform in [0, 1000) at random rows."""
+    import numpy as np
+
+    from simd_radix_sort_tpu_torch.utils import data as D
+    from simd_radix_sort_tpu_torch.workloads.config5_scale import zipf_ranks
+
+    if dtype == "uint8":
+        return D.make_keys(n, np.uint8, D.Distribution(dist), seed)
+    rng = np.random.default_rng(seed)
+    if dist == "[-500,500)":
+        return rng.integers(-500, 500, n, dtype=np.int32)
+    if dist == "zipf":
+        return (zipf_ranks(n, 1.1, 1000, seed) - 1).astype(np.int32)
+    keys = np.zeros(n, np.int32)
+    rare = rng.random(n) < 0.01
+    keys[rare] = rng.integers(0, 1000, int(rare.sum()), dtype=np.int32)
+    return keys
+
+
+def k1_carrier(keys, dev):
+    """The carrier and base that count's sort_keys hands K1 for `keys`
+    (ascending): base = the carrier of the least key, or of 0 for 1-byte
+    keys, whose 256 buckets cover every value."""
+    from simd_radix_sort_tpu_torch.utils import interop, transforms
+
+    c = transforms.to_sortable(interop.from_numpy(keys, dev))
+    sign = 1 << (8 * keys.dtype.itemsize - 1)
+    lo = 0 if keys.dtype.itemsize == 1 else int(
+        transforms.to_sortable_np(keys).min())
+    return c, lo ^ sign
+
+
+def k1_inputs(size: int, k: int, zipf, randint, dev) -> dict:
+    """label -> int64 offsets from a histogram's base, size + 1 of them
+    (the misaligned view drops the first), that can break K1: every row in
+    one bucket, two buckets, sorted and reverse-sorted runs, Zipf(1.1)
+    ranks mod 1000 (`zipf`, int16, at least size + 1 of them), buckets
+    holding exactly 255, 256 and 65,536 rows in runs, and values outside
+    [0, k) on both sides, which must drop out."""
+    import torch
+
+    m = size + 1
+    edge = randint(-8, k + 8, m)
+    exact = randint(0, k, m) % max(1, k - 3) + 3  # no row in buckets 0-2
+    at = 1 + int(randint(0, max(1, m - 66_048), 1).item())
+    runs = torch.repeat_interleave(
+        torch.arange(3, device=dev),
+        torch.tensor([255, 256, 65_536], device=dev))[:m - at]
+    exact[at:at + runs.numel()] = runs
+    return {"one value": torch.full((m,), k // 2, dtype=torch.int64,
+                                    device=dev),
+            "two values": randint(0, 2, m) * (k - 1),
+            "sorted": torch.sort(edge).values,
+            "reverse-sorted": torch.sort(edge, descending=True).values,
+            "zipf": zipf[:m].to(torch.int64),
+            "exactly 255, 256, 65536": exact,
+            "outside [base, base + k)": randint(-2 * k, 3 * k, m)}
+
+
+def k1_shape_timings(n: int, seed: int, reps: int, dev, hold) -> list:
+    """Phase 4's K1 rows at K1_SHAPES, n rows each: the kernel's device ms
+    (event_device_ms of bare launches into one output, K1_SPREAD_RUNS
+    times: median and runs), the wrapper's and the plain version's call
+    ms, torch.bincount's ms on the same offsets (the library call), the
+    bound (the carrier read once at the card's memory rate) and
+    device/bound.  The bare launches'
+    output is held against the plain version through `hold`."""
+    import torch
+
+    from simd_radix_sort_tpu_torch.models import roofline
+    from simd_radix_sort_tpu_torch.ops import _build, cuda_hist as ch
+
+    chip = roofline.chip_for_name(torch.cuda.get_device_name(0))
+    rows = []
+    for label, dtype, dist, k in K1_SHAPES:
+        keys = k1_keys(dtype, dist, n, seed)
+        c, base = k1_carrier(keys, dev)
+        del keys
+        w = c.element_size()
+        off = ((c.to(torch.int64) - base) & ((1 << (8 * w)) - 1)).to(
+            torch.uint8 if w == 1 else torch.int32)
+        out = torch.zeros(k, dtype=torch.int32, device=dev)
+
+        def bare():
+            _build.launch("srs_histogram", dev, c.data_ptr(), w, n, base, k,
+                          out.data_ptr())
+
+        runs = [event_device_ms([bare]) for _ in range(K1_SPREAD_RUNS)]
+        out.zero_()
+        bare()
+        hold("histogram", (out,), (ch.histogram_plain(c, k, base),),
+             f"{label} bare launch")
+        device_ms = statistics.median(runs)
+        bound = max(roofline.bound_ms(n * w, chip), n / PEAK_OPS * 1e3)
+        row = {"name": "histogram", "shape": label, "n": n, "k": k,
+               "device_ms": device_ms, "device_ms_runs": runs,
+               "spread": max(runs) / min(runs),
+               "ms": time_calls(lambda: ch.histogram(c, k, base), reps),
+               "plain_ms": time_calls(
+                   lambda: ch.histogram_plain(c, k, base), reps),
+               "library_ms": time_calls(
+                   lambda: torch.bincount(off, minlength=k), reps),
+               "library_call": "bincount", "bound_ms": bound,
+               "bound_by": "bytes", "device_over_bound": device_ms / bound,
+               "top_bucket_share": int(out.max().item()) / n}
+        rows.append(row)
+        log(f"phase 4: K1 {json.dumps(row)}")
+        del c, off, out
+    return rows
 
 
 # rows of case (p): the quick engine's 1024 buckets average <= its
@@ -1724,6 +1861,23 @@ def main() -> int:
                 hold("histogram", (ch.histogram(x, k, base),),
                      (ch.histogram_plain(x, k, base),),
                      f"w={width} k={k} n={size}")
+    # K1 on the inputs that can break it (k1_inputs), each width and k, at
+    # full n and on the ragged, misaligned view
+    zipf = torch.from_numpy(k1_keys("int32", "zipf", n + 1, args.seed)).to(
+        device=dev, dtype=torch.int16)
+    for width in (1, 2, 4):
+        for k in (16, 256, 1024):
+            for size in (n, ragged):
+                base = int(randint(0, 1 << (8 * width), 1).item())
+                for label, off in k1_inputs(size, k, zipf, randint,
+                                            dev).items():
+                    v = as_width(base + off, width)
+                    x = v[1:] if size == ragged else v[:size]
+                    hold("histogram", (ch.histogram(x, k, base),),
+                         (ch.histogram_plain(x, k, base),),
+                         f"{label} w={width} k={k} n={size}")
+                    del v, x, off
+    del zipf
     # (lo, carrier bytes, flip, span): windows straddling 2^31 and 2^32, a
     # 2-byte carrier ordered through its sign flip, and one wide range
     # (out of contract: the stats stay exact, the output is defined)
@@ -1908,7 +2062,10 @@ def main() -> int:
         if got != sums64:
             raise AssertionError(f"{label}: checksums {got} != {sums64}")
 
-    def auto_case(label, keys, pays, asc, engine, row_bytes):
+    xla_runs = {}  # label -> the same sort on xla, timed beside the case
+
+    def auto_case(label, keys, pays, asc, engine, row_bytes,
+                  time_xla=False):
         """A case of sort(method="auto") on the count engine."""
         m = methods.resolve("auto", keys.dtype, [p.dtype for p in pays],
                             keys.shape[0])
@@ -1942,6 +2099,9 @@ def main() -> int:
 
         cases.append((label, engine, keys.shape[0], run, check, expect,
                       stream_roofline(row_bytes)))
+        if time_xla:
+            xla_runs[label] = lambda: srs.sort(kd, *pd, ascending=asc,
+                                               method="xla")
 
     def stable_case(label, engine, kd, pd, asc, run, expect, roof,
                     extra=None):
@@ -1970,6 +2130,12 @@ def main() -> int:
     # (b) uint8 keys only: 256-bucket counting
     keys8 = D.make_keys(n, np.uint8, D.Distribution.UNIFORM, args.seed)
     auto_case("b uint8 Uniform", keys8, (), True, "count", 1)
+    # (b2), (b3) the skewed 1-byte keys K1 sees on this path, each also
+    # timed on xla
+    for dist in (D.Distribution.ZERO, D.Distribution.REVERSE_SORTED):
+        auto_case(f"b{2 if dist is D.Distribution.ZERO else 3} uint8 "
+                  f"{dist.value}", D.make_keys(n, np.uint8, dist, args.seed),
+                  (), True, "count", 1, time_xla=True)
     # (c) int32 keys only, tiny range
     for dist in (D.Distribution.ZERO, D.Distribution.ZERO_ONE):
         auto_case(f"c int32 {dist.value}",
@@ -2060,6 +2226,9 @@ def main() -> int:
                "trace": {"wall_ms_profiled": wall, "device_busy_ms": busy,
                          "idle_share": 1 - busy / ms if per else None,
                          "top": [[k[:90], v] for k, v in top]}}
+        if label in xla_runs:
+            res["xla_ms"] = time_ms(xla_runs[label],
+                                    reps=max(5, args.reps // 2))
         results.append(res)
         log(f"phase 3: {json.dumps(res)}")
     for case, bits in (("g", 64), ("h", 32)):  # one K5 pass per key bit
@@ -2138,7 +2307,7 @@ def main() -> int:
         f"at {SMALL_N} rows in {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 4: kernel times at the main paths' shapes -------------------
-    del cases, kh, ph, ki, pi, kj
+    del cases, xla_runs, kh, ph, ki, pi, kj
     u8 = as_width(randint(0, 256, n), 1)
     i32 = as_width(randint(0, 2, n), 4)
     i32w = as_width(randint(-500, 500, n), 4)
@@ -2196,17 +2365,8 @@ def main() -> int:
 
     # (name, shape, kernel, plain, library call, its description, bytes,
     # operations, bare launches of K4-K6 for their event-timed device time)
+    # K1's rows are k1_shape_timings' (below)
     shapes = [
-        ("histogram", "uint8 n=%d k=256 (case b)" % n,
-         lambda: ch.histogram(u8, 256, 0x80),
-         lambda: ch.histogram_plain(u8, 256, 0x80),
-         lambda: torch.bincount(u8.view(torch.uint8), minlength=256),
-         "bincount", n + 256 * 4, n, None),
-        ("histogram", "int32 n=%d k=1024 (case d)" % n,
-         lambda: ch.histogram(i32w, 1024, -500),
-         lambda: ch.histogram_plain(i32w, 1024, (-500) & 0xFFFFFFFF),
-         lambda: torch.bincount(i32w + 500, minlength=1024),
-         "bincount", 4 * n + 1024 * 4, n, None),
         ("minmax_hist16", "int32 n=%d (cases c-e)" % n,
          lambda: ch.minmax_hist16(i32, flip32),
          lambda: ch.minmax_hist16_plain(i32, flip32),
@@ -2291,6 +2451,9 @@ def main() -> int:
              "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
         timings.append(t)
         log(f"phase 4: {json.dumps(t)}")
+
+    # K1 at the distributions of the main path, S1-S8
+    k1_rows = k1_shape_timings(n, args.seed, args.reps, dev, hold)
 
     # K4 and K6 at tiles of 4-64 KiB, past the wrappers: the kernel's
     # device time from events around launches queued while the card spins,
@@ -2383,7 +2546,7 @@ def main() -> int:
 
     kernels = []
     for name, (replaces, source) in TPU_KERNELS.items():
-        t = next(x for x in timings if x["name"] == name)
+        t = next(x for x in k1_rows + timings if x["name"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "tpu_kernel": replaces,
@@ -2403,6 +2566,7 @@ def main() -> int:
                               else None),
               "cuda": torch.version.cuda, "n": n, "seed": args.seed,
               "kernels": kernels, "kernel_timings": timings,
+              "k1_shapes": k1_rows,
               "fill_tile_sweep": tile_sweep,
               "main_path": results, "host_engines": host_engines,
               "cpu_card_agree": agreed,

@@ -23,6 +23,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;  // 8 x 256 threads fill an SM's 2048 slots
+constexpr int kHistThreads = 512;  // K1's blocks (one wave of them)
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
@@ -122,22 +123,140 @@ __device__ __forceinline__ void paint_runs(const long long* cum, int k,
 // lane-parallel accumulator carried across a sequential grid) and, for
 // k = 256 and 1024, counting.py:mxu_histogram (a one-hot matmul on the MXU).
 // out[b] += #{i : (T)(x[i] - base) == b} for b < k; other values drop out.
-// Bound: reading n * sizeof(T) bytes.  Each block counts into k int32
-// counters in shared memory (k <= 1024, 4 KB) and adds them to `out` once.
+// Bound: reading n * sizeof(T) bytes.  One launch; each block counts into
+// shared memory and adds its counts to `out` once.
+//
+// The TPU kernel's cost does not depend on the data; a shared atomic per
+// row could, since lanes of a warp that hit one counter or one bank are
+// served one after another.  Measured on an H100 (PERF.md, shapes S1-S8):
+// - With one array of k counters per block and one atomic per row, every
+//   distribution took the same time, all rows one value included: 1-byte
+//   keys were bound by the instructions issued per row (1.9x their bound;
+//   more of them made it slower, fewer faster), 4-byte keys by memory
+//   (1.17x).
+// - 1-byte keys (histogram_kernel_u8) are counted by their raw byte, with
+//   base and k applied to the 256 counts at the block's end, so a row costs
+//   no subtraction and no range test.  Byte v of lane l counts at int
+//   index v * 32 + l: the 32 lanes of an atomic always hit 32 banks, and
+//   the byte offsets of two rows are built at once in the 16-bit halves of
+//   a word: about 2 instructions and an atomic a row.  32 KB a block.
+// - 2- and 4-byte keys (histogram_kernel) keep one array of k counters.
+// - A 16-byte vector whose rows all hold one value (the runs of Zero and
+//   sorted inputs, most of a nearly constant column) is counted with one
+//   atomic.
+// - Each thread keeps two 16-byte loads in flight, and the grid is one
+//   wave of kHistThreads-thread blocks.
 template <typename T>
-__global__ void histogram_kernel(const T* __restrict__ x, long long n, T base,
-                                 int k, int* __restrict__ out) {
+__device__ __forceinline__ void count_vector(const uint4& w, T base, int k,
+                                             int* counts) {
+  constexpr int kPer = 16 / sizeof(T);
+  const uint32_t first = sizeof(T) == 2 ? __byte_perm(w.x, 0, 0x1010) : w.x;
+  T e[kPer];
+  memcpy(e, &w, sizeof(w));
+  if (w.x == first && w.y == first && w.z == first && w.w == first) {
+    const unsigned off = (T)(e[0] - base);
+    if (off < (unsigned)k) atomicAdd(&counts[off], kPer);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const unsigned off = (T)(e[j] - base);
+    if (off < (unsigned)k) atomicAdd(&counts[off], 1);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kHistThreads)
+    histogram_kernel(const T* __restrict__ x, long long n, T base, int k,
+                     int* __restrict__ out) {
   extern __shared__ __align__(8) unsigned char smem[];
   int* counts = reinterpret_cast<int*>(smem);
-  for (int b = threadIdx.x; b < k; b += blockDim.x) counts[b] = 0;
+  for (int b = threadIdx.x; b < k; b += kHistThreads) counts[b] = 0;
   __syncthreads();
-  for_each(x, n, [&](T v) {
-    const T off = (T)(v - base);
-    if ((unsigned)off < (unsigned)k) atomicAdd(&counts[off], 1);
-  });
+  constexpr int kPer = 16 / sizeof(T);
+  const long long tid = (long long)blockIdx.x * kHistThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kHistThreads;
+  long long head = 0;
+  if (aligned16(x)) {
+    const long long nvec = n / kPer;
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    long long v = tid;
+    for (; v + stride < nvec; v += 2 * stride) {
+      const uint4 a = xv[v], b = xv[v + stride];
+      count_vector<T>(a, base, k, counts);
+      count_vector<T>(b, base, k, counts);
+    }
+    if (v < nvec) count_vector<T>(xv[v], base, k, counts);
+    head = nvec * kPer;
+  }
+  // the ragged tail, or all of an input that is not 16-byte aligned
+  for (long long i = head + tid; i < n; i += stride) {
+    const unsigned off = (T)(x[i] - base);
+    if (off < (unsigned)k) atomicAdd(&counts[off], 1);
+  }
   __syncthreads();
-  for (int b = threadIdx.x; b < k; b += blockDim.x)
+  for (int b = threadIdx.x; b < k; b += kHistThreads)
     if (counts[b]) atomicAdd(&out[b], counts[b]);
+}
+
+// K1 for 1-byte carriers, k <= 1024 (no offset reaches 256).
+__global__ void __launch_bounds__(kHistThreads)
+    histogram_kernel_u8(const uint8_t* __restrict__ x, long long n,
+                        unsigned base, int k, int* __restrict__ out) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  int* counts = reinterpret_cast<int*>(smem);  // [byte][lane]
+  for (int i = threadIdx.x; i < 256 * 32; i += kHistThreads) counts[i] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  // the byte address of counter (v, lane) is v * 128 + lane * 4 < 2^15
+  const uint32_t lanes = (uint32_t)(lane * 4) * 0x10001u;
+  constexpr uint32_t kRows = (0xFFu << 7) * 0x10001u;
+  auto count_word = [&](uint32_t w) {
+    const uint32_t even = ((w << 7) & kRows) | lanes;  // bytes 0 and 2
+    const uint32_t odd = ((w >> 1) & kRows) | lanes;   // bytes 1 and 3
+    atomicAdd(reinterpret_cast<int*>(smem + (even & 0xFFFFu)), 1);
+    atomicAdd(reinterpret_cast<int*>(smem + (even >> 16)), 1);
+    atomicAdd(reinterpret_cast<int*>(smem + (odd & 0xFFFFu)), 1);
+    atomicAdd(reinterpret_cast<int*>(smem + (odd >> 16)), 1);
+  };
+  auto count_vector8 = [&](const uint4& w) {
+    const uint32_t first = __byte_perm(w.x, 0, 0);
+    if (w.x == first && w.y == first && w.z == first && w.w == first) {
+      atomicAdd(&counts[(w.x & 0xFFu) * 32 + lane], 16);
+      return;
+    }
+    count_word(w.x);
+    count_word(w.y);
+    count_word(w.z);
+    count_word(w.w);
+  };
+  const long long tid = (long long)blockIdx.x * kHistThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kHistThreads;
+  long long head = 0;
+  if (aligned16(x)) {
+    const long long nvec = n / 16;
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    long long v = tid;
+    for (; v + stride < nvec; v += 2 * stride) {
+      const uint4 a = xv[v], b = xv[v + stride];
+      count_vector8(a);
+      count_vector8(b);
+    }
+    if (v < nvec) count_vector8(xv[v]);
+    head = nvec * 16;
+  }
+  // the ragged tail, or all of an input that is not 16-byte aligned
+  for (long long i = head + tid; i < n; i += stride)
+    atomicAdd(&counts[x[i] * 32 + lane], 1);
+  __syncthreads();
+  // byte v's 32 copies, read from a rotated start: a warp's lanes hit
+  // distinct banks
+  for (int v = threadIdx.x; v < 256; v += kHistThreads) {
+    int sum = 0;
+    for (int j = 0; j < 32; ++j) sum += counts[v * 32 + ((j + v) & 31)];
+    const unsigned off = (unsigned)(v - (int)base) & 0xFFu;
+    if (sum && off < (unsigned)k) atomicAdd(&out[off], sum);
+  }
 }
 
 // K2.  Replaces pallas_hist.py:_minmax_hist16_kernel / minmax_hist16.
@@ -388,18 +507,43 @@ __global__ void fill_runs_packed_kernel(const int* __restrict__ hist, int k,
   }
 }
 
-// One wave of a persistent grid for a fill of `items` tiles: as many blocks
-// as the SMs hold at once, no more than there are tiles, at least one.
+// One wave of a persistent grid of `threads`-thread blocks for `items`
+// units of work (a fill's tiles): as many blocks as the SMs hold at once, no
+// more than there are items, at least one.
 template <typename K>
-int fill_grid(K kernel, long long items, size_t smem) {
+int wave_grid(K kernel, int threads, long long items, size_t smem) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
                                                 smem);
   long long blocks = (long long)(sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
   if (blocks > items) blocks = items;
   return blocks < 1 ? 1 : (int)blocks;
+}
+
+constexpr int kMaxHistK = 1024;  // cuda_hist.MAX_HIST_K
+
+// K1's launch: one wave of blocks, no more than the input has 16-byte
+// vectors for; 1-byte carriers on histogram_kernel_u8 (32 KB of counters a
+// block), wider ones with k int32 counters a block.
+template <typename T>
+int launch_histogram(const T* x, long long n, T base, int k, int* out,
+                     cudaStream_t s) {
+  const long long vecs = (n * (long long)sizeof(T) + 15) / 16;
+  const long long items = (vecs + kHistThreads - 1) / kHistThreads;
+  if constexpr (sizeof(T) == 1) {
+    const size_t smem = 256 * 32 * sizeof(int);
+    const int grid =
+        wave_grid(histogram_kernel_u8, kHistThreads, items, smem);
+    histogram_kernel_u8<<<grid, kHistThreads, smem, s>>>(x, n, base, k, out);
+  } else {
+    const size_t smem = (size_t)k * sizeof(int);
+    const int grid =
+        wave_grid(histogram_kernel<T>, kHistThreads, items, smem);
+    histogram_kernel<T><<<grid, kHistThreads, smem, s>>>(x, n, base, k, out);
+  }
+  return (int)cudaGetLastError();
 }
 
 // K4's launch.  `hist` holds k int32 counts; tile_bytes, a positive multiple
@@ -410,7 +554,7 @@ int launch_fill_runs(const int* hist, int k, long long n, unsigned base,
   const size_t smem = (size_t)(k + 1) * sizeof(long long);
   const long long tiles =
       (n * (long long)sizeof(T) + tile_bytes - 1) / tile_bytes;
-  const int grid = fill_grid(fill_runs_kernel<T>, tiles, smem);
+  const int grid = wave_grid(fill_runs_kernel<T>, kThreads, tiles, smem);
   fill_runs_kernel<T><<<grid, kThreads, smem, s>>>(hist, k, n, base,
                                                   tile_bytes, out);
   return (int)cudaGetLastError();
@@ -426,27 +570,20 @@ const char* srs_error_string(int err) {
 
 int srs_histogram(const void* x, int width, long long n, unsigned base, int k,
                   void* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int grid = grid_for(n, width);
-  const size_t smem = (size_t)k * sizeof(int);
-  int* o = (int*)out;
+  if (k < 1 || k > kMaxHistK) return (int)cudaErrorInvalidValue;
   switch (width) {
     case 1:
-      histogram_kernel<uint8_t><<<grid, kThreads, smem, s>>>(
-          (const uint8_t*)x, n, (uint8_t)base, k, o);
-      break;
+      return launch_histogram((const uint8_t*)x, n, (uint8_t)base, k,
+                              (int*)out, (cudaStream_t)stream);
     case 2:
-      histogram_kernel<uint16_t><<<grid, kThreads, smem, s>>>(
-          (const uint16_t*)x, n, (uint16_t)base, k, o);
-      break;
+      return launch_histogram((const uint16_t*)x, n, (uint16_t)base, k,
+                              (int*)out, (cudaStream_t)stream);
     case 4:
-      histogram_kernel<uint32_t><<<grid, kThreads, smem, s>>>(
-          (const uint32_t*)x, n, (uint32_t)base, k, o);
-      break;
+      return launch_histogram((const uint32_t*)x, n, (uint32_t)base, k,
+                              (int*)out, (cudaStream_t)stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 int srs_minmax_hist16(const void* x, int width, long long n, unsigned flip,
@@ -514,7 +651,7 @@ int srs_fill_runs_packed(const void* hist, int k, long long n, int tile_bytes,
   if (k < 1 || k > 256 || n % 4 || tile_bytes < 16 || tile_bytes % 16)
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(k + 1) * sizeof(long long);
-  const int grid = fill_grid(fill_runs_packed_kernel,
+  const int grid = wave_grid(fill_runs_packed_kernel, kThreads,
                              (n + tile_bytes - 1) / tile_bytes, smem);
   fill_runs_packed_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const int*)hist, k, n / 4, tile_bytes, (uint32_t*)out);

@@ -66,6 +66,66 @@ def test_histogram_base_wraps_in_carrier_width(dtype, base):
     assert np.array_equal(got, np.bincount(off[off < 1024], minlength=1024))
 
 
+def _skewed_offsets(kind: str, k: int) -> np.ndarray:
+    """int64 offsets from a histogram's base that K1's design must count
+    exactly whatever their skew: one value (more rows than an 8-bit and
+    than a 16-bit counter holds), two values, sorted and reverse-sorted
+    runs, Zipf(1.1) ranks mod 1000, buckets of exactly 255, 256 and 65,536
+    rows in runs, and values outside [0, k) on both sides."""
+    rng = np.random.default_rng(k)
+    edge = rng.integers(-8, k + 8, 5000)
+    if kind == "one value, 300 rows":
+        return np.full(300, k // 2)
+    if kind == "one value, 70000 rows":
+        return np.full(70_000, k - 1)
+    if kind == "two values":
+        return rng.integers(0, 2, 5000) * (k - 1)
+    if kind == "sorted":
+        return np.sort(edge)
+    if kind == "reverse-sorted":
+        return np.sort(edge)[::-1].copy()
+    if kind == "zipf":
+        return (rng.zipf(1.1, 5000) - 1) % 1000
+    if kind == "exactly 255, 256, 65536":
+        runs = np.repeat([0, 1, 2], [255, 256, 65_536])
+        rest = rng.integers(3, max(4, k), 3000)
+        return np.concatenate([rest[:1000], runs, rest[1000:]])
+    assert kind == "outside [0, k)"
+    return rng.integers(-2 * k, 3 * k, 5000)
+
+
+_SKEWED = ["one value, 300 rows", "one value, 70000 rows", "two values",
+           "sorted", "reverse-sorted", "zipf", "exactly 255, 256, 65536",
+           "outside [0, k)"]
+_CARRIERS = {1: (np.int8, 0xF0), 2: (np.int16, 0x7FF0),
+             4: (np.int32, 2**32 - 3)}
+
+
+@pytest.mark.parametrize("width", [1, 2, 4])
+@pytest.mark.parametrize("k", [16, 256, 1024])
+@pytest.mark.parametrize("kind", _SKEWED)
+def test_histogram_skewed_matches_jax(kind, k, width):
+    """K1 on skewed inputs in each carrier width (a signed carrier and a
+    base that wraps in its width): the port's histogram equals the JAX
+    package's counterpart for that k, the Pallas histogram in interpret
+    mode at k = 16 and the MXU histogram that the TPU path runs for
+    k >= 256, on the offsets (x - base) mod 2^w."""
+    dtype, base = _CARRIERS[width]
+    mask = (1 << (8 * width)) - 1
+    u = (base + _skewed_offsets(kind, k)) & mask
+    v = u.astype(np.uint64).astype(f"u{width}").view(dtype)
+    got = _np(cuda_hist.histogram(_t(v), k, base))
+    off = ((u - base) & mask).astype(np.uint32).view(np.int32)
+    if k == 16:
+        want = np.asarray(pallas_hist.histogram(jnp.asarray(off), k,
+                                                interpret=True))
+    else:
+        want = np.asarray(jcounting.mxu_histogram(jnp.asarray(off), k))
+    assert np.array_equal(got, want)
+    keep = (u - base) & mask
+    assert np.array_equal(got, np.bincount(keep[keep < k], minlength=k))
+
+
 @pytest.mark.parametrize("n_extra", [0, 1, 127, 12345])
 def test_fill_runs_matches_pallas(n_extra):
     rng = np.random.default_rng(1)
