@@ -108,7 +108,16 @@ Phases, each raising on failure:
      remeasure_noise and run_test_matrix 1000, each into build/srs_torch/
      drivers/<name>/: each must exit 0, every table must carry the
      reference's header, the matrix must print ALL PASSED; their K1-K5
-     launches join the kernels line's counts.
+     launches join the kernels line's counts.  Then workloads/
+     summarize_bench over perf_suite's tables and over bench_out_h100/:
+     each must exit 0 with one row a method table.
+  9. the entry points (entry_phase, simd_radix_sort_tpu_torch/entry.py):
+     entry() on the card, equal to its CPU run and timed;
+     dryrun_multichip over NCCL ranks, one a card, twice (the first run's
+     K5 launches join the kernels line's counts), then held equal to the
+     same dry run on as many Gloo ranks on the CPU; and dryrun_multichip
+     on 4 Gloo ranks, so that the hot-key assertion and the hierarchical
+     steps run whatever the card count.
 
 Prints one {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -126,9 +135,12 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 from simd_radix_sort_tpu_torch.workloads.common import (
     device_checksums, free_port, host_checksums, signed)
+
+REPO = Path(__file__).resolve().parent
 
 HIST_SOURCE = "simd_radix_sort_tpu_torch/csrc/hist_kernels.cu"
 PARTITION_SOURCE = "simd_radix_sort_tpu_torch/csrc/partition_kernels.cu"
@@ -1768,6 +1780,125 @@ def drivers_phase(dev, sizes=DRIVER_SIZES) -> dict:
     return {"drivers": results}
 
 
+SUMMARY_SKIPS = ("tpe-", "digits-", "speedup-", "combined-", "thresh-",
+                 "quickstudy-")
+
+
+def summarize_phase(table_dir) -> dict:
+    """workloads/summarize_bench over `table_dir`, as a user runs it: it
+    must exit 0 and print one row for each method table there (a table
+    outside the skipped families with a row of a device engine)."""
+    want = 0
+    for path in sorted(table_dir.glob("*.dat")):
+        rows = [x.split() for x in path.read_text().splitlines()[1:]]
+        if not path.name.startswith(SUMMARY_SKIPS) and any(
+                len(r) == 2 and r[0] in ("xla", "radix", "count", "rank",
+                                         "quick") for r in rows):
+            want += 1
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "simd_radix_sort_tpu_torch.workloads.summarize_bench",
+         str(table_dir)], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode:
+        raise AssertionError(f"phase 8: summarize_bench {table_dir} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    got = [x for x in proc.stdout.splitlines() if " n=" in x]
+    if len(got) != want or not want:
+        raise AssertionError(f"phase 8: summarize_bench {table_dir}: "
+                             f"{len(got)} rows for {want} method tables")
+    res = {"dir": str(table_dir), "rows": len(got),
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 8: summarize_bench {json.dumps(res)}")
+    return res
+
+
+# phase 9: the Gloo dry run's rank count (its hot-key and hierarchical
+# steps need at least 4 and an even count)
+GLOO_DRYRUN_RANKS = 4
+
+
+def entry_phase(reps: int, dev) -> dict:
+    """Phase 9: the entry points (simd_radix_sort_tpu_torch/entry.py).
+    entry()'s step on the card, held equal to its CPU run (keys
+    exactly, payloads by the key<->payload pairing: the sort is unstable)
+    and timed with CUDA events; dryrun_multichip on one NCCL rank a card,
+    twice (the first run's launch counts are the phase's), each step gated
+    inside, then held equal to the same dry run on as many Gloo ranks on
+    the CPU; dryrun_multichip on 4 Gloo ranks.  Returns the record; raises
+    on any failure."""
+    import numpy as np
+    import torch
+
+    from simd_radix_sort_tpu_torch import entry as E
+    from simd_radix_sort_tpu_torch.ops import cuda_hist as ch
+    from simd_radix_sort_tpu_torch.ops import cuda_partition as cp
+    from simd_radix_sort_tpu_torch.utils import interop
+
+    step, args = E.entry(dev)
+    ch.reset_launches()
+    cp.reset_launches()
+    keys, pay = step(*args)
+    torch.cuda.synchronize()
+    launches = {**ch.LAUNCHES, **cp.LAUNCHES}
+    cpu_step, cpu_args = E.entry("cpu")
+    cpu_keys, cpu_pay = (interop.to_numpy(t) for t in cpu_step(*cpu_args))
+    keys, pay = interop.to_numpy(keys), interop.to_numpy(pay)
+    if not np.array_equal(keys, cpu_keys):
+        raise AssertionError("phase 9: entry() keys differ between the card "
+                             "and the CPU")
+    wide = np.uint64
+    if not np.array_equal(
+            E.pair_prints(keys.astype(wide), pay.astype(wide)),
+            E.pair_prints(cpu_keys.astype(wide), cpu_pay.astype(wide))):
+        raise AssertionError("phase 9: entry() key<->payload pairs differ "
+                             "between the card and the CPU")
+    ms = time_calls(lambda: step(*args), reps)
+    rec = {"entry": {"rows": int(keys.shape[0]), "ms": ms,
+                     "rows_per_s": keys.shape[0] / ms * 1e3,
+                     "launches": launches}}
+    log(f"phase 9: entry {json.dumps(rec['entry'])}")
+
+    world = torch.cuda.device_count()
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        card = E.dryrun_multichip(world)
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "steps": card["seconds"],
+                     "k5_launches": card["k5_launches"]})
+    cpu = E.dryrun_multichip(world, "cpu")
+    for key in ("sort_counts", "filter_rows", "aggregate_groups",
+                "aggregate_sum", "join_pairs", "join_hot", "hierarchical"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"phase 9: dry run {key} differs between "
+                                 f"NCCL ({card[key]}) and Gloo ({cpu[key]})")
+    if not np.array_equal(card["sorted_keys"], cpu["sorted_keys"]):
+        raise AssertionError("phase 9: dry run sorted keys differ between "
+                             "NCCL and Gloo")
+    if not card["k5_launches"]:
+        raise AssertionError("phase 9: the dry run launched K5 no time")
+    rec["nccl"] = {"ranks": world, "rows": card["rows"], "runs": runs,
+                   "k5_launches": runs[0]["k5_launches"],
+                   "join_hot": card["join_hot"],
+                   "hierarchical": card["hierarchical"] is not None}
+    log(f"phase 9: dryrun_multichip({world}) on NCCL "
+        f"{json.dumps(rec['nccl'])}")
+
+    t0 = time.perf_counter()
+    gloo = E.dryrun_multichip(GLOO_DRYRUN_RANKS, "cpu")
+    if gloo["hierarchical"] is None or \
+            gloo["join_hot"]["key_slots_flagged"] < 1:
+        raise AssertionError("phase 9: the Gloo dry run skipped a step")
+    rec["gloo"] = {"ranks": GLOO_DRYRUN_RANKS, "rows": gloo["rows"],
+                   "seconds": time.perf_counter() - t0,
+                   "steps": gloo["seconds"], "join_hot": gloo["join_hot"]}
+    log(f"phase 9: dryrun_multichip({GLOO_DRYRUN_RANKS}) on Gloo "
+        f"{json.dumps(rec['gloo'])}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000)
@@ -2535,6 +2666,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     drivers = drivers_phase(dev)
+    drivers["summaries"] = [
+        summarize_phase(d) for d in (_build.BUILD_DIR / "drivers" /
+                                     "perf_suite", REPO / "bench_out_h100")]
     for r in drivers["drivers"]:
         for name, count in r["launches"].items():
             main_launches[name] += count
@@ -2543,6 +2677,16 @@ def main() -> int:
                            for k in main_launches}
     log(f"phase 8: the measurement drivers in {drivers['seconds']:.1f} s, "
         f"launches {json.dumps(drivers['launches'])}")
+
+    # ---- phase 9: the entry points ------------------------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    entries = entry_phase(args.reps, dev)
+    for name, count in entries["entry"]["launches"].items():
+        main_launches[name] += count
+    main_launches["partition_pass"] += entries["nccl"]["k5_launches"]
+    entries["seconds"] = time.perf_counter() - t0
+    log(f"phase 9: the entry points in {entries['seconds']:.1f} s")
 
     kernels = []
     for name, (replaces, source) in TPU_KERNELS.items():
@@ -2572,6 +2716,7 @@ def main() -> int:
               "cpu_card_agree": agreed,
               "distributed": distributed, "measurement": measurement,
               "workloads": workloads, "drivers": drivers,
+              "entry_points": entries,
               "seconds": time.perf_counter() - t_start}
     if args.out:
         with open(args.out, "w") as f:

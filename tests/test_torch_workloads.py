@@ -10,6 +10,8 @@ configuration 3's bytes and fingerprints against the JAX `gen_packed`,
 counts against the JAX `run_pipeline`, and configuration 5's table makers
 against the JAX script's.  Configuration 5's card leg runs on a Gloo group
 of one with device="cpu", its Gloo leg on two spawned processes.
+`summarize_bench`'s rows equal the JAX script's on the same directories,
+with the JAX script's TPU-trace column left out.
 """
 
 import os
@@ -23,7 +25,8 @@ import torch
 from simd_radix_sort_tpu_torch.utils import interop
 from simd_radix_sort_tpu_torch.workloads import (combined_1e8, common,
                                                  config5_scale, headline,
-                                                 pipeline_1e9)
+                                                 pipeline_1e9,
+                                                 summarize_bench)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
@@ -31,6 +34,7 @@ import benchlib  # noqa: E402
 import combined_1e8 as jax_combined  # noqa: E402
 import config5_scale as jax_config5  # noqa: E402
 import pipeline_1e9 as jax_pipeline  # noqa: E402
+import summarize_bench as jax_summarize  # noqa: E402
 
 import simd_radix_sort_tpu as jsrs  # noqa: E402
 
@@ -319,3 +323,46 @@ def test_workloads_need_a_card_unless_the_cpu_is_asked(monkeypatch):
                  lambda: config5_scale.leg_card(16, 16, 8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def _jax_summary(monkeypatch, capsys, out_dir, ref_dir):
+    """The JAX script's rows, without its TPU-trace column."""
+    monkeypatch.setattr(jax_summarize, "LOSING_TRACE", os.devnull)
+    monkeypatch.setattr(jax_summarize, "REF_DIR", str(ref_dir))
+    monkeypatch.setattr(sys, "argv", ["summarize_bench.py", str(out_dir)])
+    capsys.readouterr()
+    jax_summarize.main()
+    return capsys.readouterr().out.splitlines()[1:]
+
+
+def test_summarize_bench_rows_equal_the_jax_scripts(monkeypatch, capsys,
+                                                    tmp_path):
+    cpu, host = summarize_bench.load_ref_host()
+    assert cpu and host
+    h100 = os.path.join(os.path.dirname(__file__), "..", "bench_out_h100")
+    want = _jax_summary(monkeypatch, capsys, h100, tmp_path / "none")
+    got = summarize_bench.rows(h100, None, host)
+    assert got == want and len(got) == len(summarize_bench.summary_tables(
+        h100)) > 200
+    # thesis tables present: their columns too; skipped families, tables
+    # without a device engine and unreadable ones drop out alike
+    ours, ref = tmp_path / "ours", tmp_path / "thesis"
+    ours.mkdir()
+    ref.mkdir()
+    for name, body in (
+            ("int32-Uniform-262144.dat", "method ns\nxla 0.9\ncount 0.5\n"),
+            ("uint64-uint64-Zero-1024.dat", "method ns\nradix 2.5\n"),
+            ("tpe-int32-Uniform-262144.dat", "method ns\nxla 0.1\n"),
+            ("float-Sorted-262144.dat", "method ns\nseq 9.0\n"),
+            ("double-Uniform-262144.dat", "")):
+        (ours / name).write_text(body)
+    (ref / "int32-Uniform-262144.dat").write_text(
+        "method ns\nRadixSIMD 2.0\nBlacherSort 1.5\nSTLSort 9.0\n")
+    (ref / "uint64-uint64-Zero-1024.dat").write_text(
+        "method ns\nRadixSIMD 4.0\n")
+    want = _jax_summary(monkeypatch, capsys, ours, ref)
+    got = summarize_bench.rows(ours, ref, host)
+    assert got == want and len(got) == 2
+    assert summarize_bench.main([str(ours), "--ref-dir", str(ref)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert cpu in out[0] and out[2:] == got
