@@ -40,9 +40,10 @@ Phases, each raising on failure:
                merge_join_indices of lineitem and orders;
        (o)     top_k (k=100) over (a)'s data and over int32 keys with
                many ties; unique over int32 keys with 1% distinct;
-       (p)     sort(method="quick") at 4·10^6 rows (QUICK_N), stable and
-               not (the blocked path must run); quick_sort.partition;
-               method="rank" at 4096 rows.
+       (p)     sort(method="quick") at quick_rows() rows (MAX_BUCKETS x
+               SEGMENT_TARGET, at most 10^8), stable and not (the blocked
+               path must run); quick_sort.partition; method="rank" at
+               4096 rows.
      Then the host engines, method="torch" and method="cpp" (the native
      harness, built here with g++), at 10^6 rows of (a)'s data: each must
      equal the stable comparison sort byte for byte.
@@ -54,8 +55,10 @@ Phases, each raising on failure:
      each under torch.profiler gives device time by kernel and the
      device's idle share of the call.  K4 and K6 are also timed at tiles
      of 4-64 KiB, and each of their calls must be one kernel on the card;
-     K1 at the eight distributions the count engine hands it (K1_SHAPES,
-     k1_shape_timings).
+     K1 at the distributions the count engine hands it (K1_SHAPES,
+     k1_shape_timings: S1-S8, and S9-S11 on int16 keys at k = 1024); K2
+     and K3 at the reference's eight distributions of int32 and int16
+     keys and at S6-S8's draws (k23_shape_timings).
   5. the distributed tier (simd_radix_sort_tpu_torch/parallel/) on P NCCL
      ranks, one card each, P the largest of 1, 2, 4 that the machine has
      (P = 1 runs in this process, P > 1 in spawned ones), each rank making
@@ -118,6 +121,11 @@ Phases, each raising on failure:
      same dry run on as many Gloo ranks on the CPU; and dryrun_multichip
      on 4 Gloo ranks, so that the hot-key assertion and the hierarchical
      steps run whatever the card count.
+  10. the thresholds (floors_phase): count and xla in turns at one power
+     of two either side of each `auto` floor and of counting.SMALL_MIN_N,
+     their ratio logged; gated on correctness, on auto's pick and on the
+     branch count takes, never on the times; its kernel launches join the
+     kernels line's counts.
 
 Prints one {"kernels": [...]} line, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -353,9 +361,9 @@ def event_device_ms(launches, rounds: int = 20) -> float:
 
 
 # phase 4: K1 at the distributions the main path hands it, as
-# (label, key dtype, distribution, k).  S1-S5: sort() of 1-byte keys, which
-# auto sends to count from 2^17 rows (k = 256); S6-S8: int32 keys of range
-# in [16, 1024), count's adaptive branch (k = 1024).
+# (label, key dtype, distribution, k).  S1-S5: sort() of 1-byte keys
+# (k = 256); S6-S8 and S9-S11: int32 and int16 keys of range in
+# [16, 1024), count's adaptive branch (k = 1024).
 K1_SHAPES = (
     ("S1 uint8 Uniform (case b)", "uint8", "Uniform", 256),
     ("S2 uint8 Zero", "uint8", "Zero", 256),
@@ -365,6 +373,9 @@ K1_SHAPES = (
     ("S6 int32 [-500,500) (case d)", "int32", "[-500,500)", 1024),
     ("S7 int32 Zipf(1.1) ranks mod 1000", "int32", "zipf", 1024),
     ("S8 int32 99% one value", "int32", "status", 1024),
+    ("S9 int16 [-500,500)", "int16", "[-500,500)", 1024),
+    ("S10 int16 Zipf(1.1) ranks mod 1000", "int16", "zipf", 1024),
+    ("S11 int16 99% one value", "int16", "status", 1024),
 )
 K1_SPREAD_RUNS = 3  # event_device_ms measurements of each K1 shape
 
@@ -383,13 +394,14 @@ def k1_keys(dtype: str, dist: str, n: int, seed: int):
         return D.make_keys(n, np.uint8, D.Distribution(dist), seed)
     rng = np.random.default_rng(seed)
     if dist == "[-500,500)":
-        return rng.integers(-500, 500, n, dtype=np.int32)
-    if dist == "zipf":
-        return (zipf_ranks(n, 1.1, 1000, seed) - 1).astype(np.int32)
-    keys = np.zeros(n, np.int32)
-    rare = rng.random(n) < 0.01
-    keys[rare] = rng.integers(0, 1000, int(rare.sum()), dtype=np.int32)
-    return keys
+        keys = rng.integers(-500, 500, n, dtype=np.int32)
+    elif dist == "zipf":
+        keys = (zipf_ranks(n, 1.1, 1000, seed) - 1).astype(np.int32)
+    else:
+        keys = np.zeros(n, np.int32)
+        rare = rng.random(n) < 0.01
+        keys[rare] = rng.integers(0, 1000, int(rare.sum()), dtype=np.int32)
+    return keys.astype(dtype)
 
 
 def k1_carrier(keys, dev):
@@ -484,12 +496,137 @@ def k1_shape_timings(n: int, seed: int, reps: int, dev, hold) -> list:
     return rows
 
 
-# rows of case (p): the quick engine's 1024 buckets average <= its
-# 4096-row target below 4,194,304 rows.  Up to 1024 * BLOCK/2 = 8,388,608
-# it still partitions, but at 8·10^6 the segments average 95% of the
-# blocked cleanup's BLOCK/2 bound and the largest passes it: the anti-skew
-# fallback runs (as on the TPU, with the same constants).
-QUICK_N = 4_000_000
+# phase 4: K2 and K3 where the count engine hands them its 2- and 4-byte
+# keys: every call of those widths pays them before it picks a branch
+K23_TYPES = ("int32", "int16")
+K23_DISTRIBUTIONS = ("Uniform", "Gaussian", "Zero", "ZeroOne", "Sorted",
+                     "ReverseSorted", "AlmostSorted", "AlmostReverseSorted")
+
+
+def device_keys(dtype: str, dist: str, n: int, gen, dev):
+    """int16 or int32 keys of one of the reference's eight distributions
+    (utils/data.py's definitions), drawn on the card from `gen`: Uniform
+    over the type, Gaussian (sigma 100, rounded, wrapped through int64),
+    Zero, ZeroOne, and the sorted family (uniform keys sorted, reversed,
+    with 2^log10(n) pairs swapped for the Almost ones)."""
+    import math
+
+    import torch
+
+    tdt = {"int16": torch.int16, "int32": torch.int32}[dtype]
+    info = torch.iinfo(tdt)
+    if dist == "Zero":
+        return torch.zeros(n, dtype=tdt, device=dev)
+    if dist == "ZeroOne":
+        return torch.randint(0, 2, (n,), generator=gen, device=dev,
+                             dtype=tdt)
+    if dist == "Gaussian":
+        g = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+        return torch.round(g * 100.0).to(torch.int64).to(tdt)
+    keys = torch.randint(info.min, info.max + 1, (n,), generator=gen,
+                         device=dev, dtype=torch.int64).to(tdt)
+    if dist == "Uniform":
+        return keys
+    keys = torch.sort(keys).values
+    if "Reverse" in dist:
+        keys = keys.flip(0)
+    if dist.startswith("Almost"):
+        pairs = torch.randint(0, n, (2, int(2 ** math.log10(n))),
+                              generator=gen, device=dev)
+        first = keys[pairs[0]].clone()
+        keys[pairs[0]] = keys[pairs[1]]
+        keys[pairs[1]] = first
+    return keys
+
+
+def k23_shape_timings(n: int, seed: int, reps: int, dev, hold) -> list:
+    """Phase 4's K2 and K3 rows: n keys of int32 and int16 at the eight
+    distributions (device_keys) and at S6-S8's draws (k1_keys): each
+    kernel's device ms (event_device_ms of bare launches, K1_SPREAD_RUNS
+    times: median and runs; K3 is K2's launch and its fill), the
+    wrapper's call ms, the bound (K2 reads the keys once, K3 also writes
+    them once, at the card's memory rate) and device/bound.  The bare
+    launches' outputs are held against the plain versions through
+    `hold`."""
+    import torch
+
+    from simd_radix_sort_tpu_torch.models import roofline
+    from simd_radix_sort_tpu_torch.ops import _build, cuda_hist as ch
+
+    chip = roofline.chip_for_name(torch.cuda.get_device_name(0))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    names = {"[-500,500)": "[-500,500)", "zipf": "Zipf(1.1) mod 1000",
+             "status": "99% one value"}
+    drawn = {f"{label.split()[0]} {names[dist]}": k1_keys("int32", dist, n,
+                                                          seed)
+             for label, dtype, dist, _ in K1_SHAPES if dtype == "int32"}
+    rows = []
+    for dtype in K23_TYPES:
+        shapes = [(dist, lambda d=dist: device_keys(dtype, d, n, gen, dev))
+                  for dist in K23_DISTRIBUTIONS]
+        shapes += [(label, lambda k=keys: torch.from_numpy(k).to(dev).to(
+                        getattr(torch, dtype)))
+                   for label, keys in drawn.items()]
+        for shape, make in shapes:
+            x = make()
+            w = x.element_size()
+            flip = 1 << (8 * w - 1)
+            stats = torch.empty(18, dtype=torch.int32, device=dev)
+            out = torch.empty_like(x)
+
+            def k2():
+                _build.launch("srs_minmax_hist16", dev, x.data_ptr(), w, n,
+                              flip, stats.data_ptr())
+
+            def fill():
+                _build.launch("srs_fill16", dev, stats.data_ptr(), w, n,
+                              flip, out.data_ptr())
+
+            for name, launches, nbytes in (("minmax_hist16", [k2], n * w),
+                                           ("tiny_sort16", [k2, fill],
+                                            2 * n * w)):
+                runs = [event_device_ms(launches)
+                        for _ in range(K1_SPREAD_RUNS)]
+                for launch in launches:
+                    launch()
+                mn, mx, hist = ch.minmax_hist16_plain(x, flip)
+                got = [stats[:2].to(torch.int64) & 0xFFFFFFFF, stats[2:]]
+                want = [torch.stack((mn, mx)), hist]
+                if name == "tiny_sort16":
+                    got, want = [out], [ch.tiny_sort16_plain(x, flip)[0]]
+                hold(name, got, want, f"{dtype} {shape} bare launches")
+                device_ms = statistics.median(runs)
+                bound = max(roofline.bound_ms(nbytes, chip),
+                            n / PEAK_OPS * 1e3)
+                wrapper = getattr(ch, name)
+                row = {"name": name, "shape": f"{dtype} {shape}", "n": n,
+                       "device_ms": device_ms, "device_ms_runs": runs,
+                       "spread": max(runs) / min(runs),
+                       "ms": time_calls(lambda: wrapper(x, flip), reps),
+                       "bound_ms": bound, "bound_by": "bytes",
+                       "device_over_bound": device_ms / bound}
+                rows.append(row)
+                log(f"phase 4: K2/K3 {json.dumps(row)}")
+            del x, stats, out
+    return rows
+
+
+# rows of case (p), at most: the most rows the blocked cleanup gets
+QUICK_MAX_N = 100_000_000
+
+
+def quick_rows() -> int:
+    """Case (p)'s rows: the quick engine's MAX_BUCKETS buckets of its
+    target segment (SEGMENT_TARGET, at most BLOCK/4: the blocked cleanup's
+    BLOCK/2 bound is twice the average segment, headroom for the sampled
+    splitters), up to QUICK_MAX_N."""
+    from simd_radix_sort_tpu_torch.ops import quick_sort
+
+    return min(QUICK_MAX_N,
+               quick_sort.MAX_BUCKETS * quick_sort.SEGMENT_TARGET)
+
+
 SMALL_N = 1_000_000  # rows of the CPU-against-card comparison
 
 
@@ -1899,6 +2036,78 @@ def entry_phase(reps: int, dev) -> dict:
     return rec
 
 
+# phase 10: count against xla one power of two either side of each auto
+# floor and of the engine's branch gate, as (label, key type, draw, the
+# threshold's name)
+FLOOR_POINTS = (
+    ("uint8 Uniform", "uint8", "Uniform", "COUNT_CROSSOVER_N_1BYTE"),
+    ("int16 Uniform", "int16", "Uniform", "COUNT_MIN_N_ADAPTIVE_2BYTE"),
+    ("uint16 Uniform", "uint16", "Uniform", "COUNT_MIN_N_ADAPTIVE_UINT16"),
+    ("int32 Uniform", "int32", "Uniform", "COUNT_MIN_N_ADAPTIVE"),
+    ("int32 [-500,500)", "int32", "[-500,500)", "SMALL_MIN_N"),
+)
+FLOOR_ROUNDS = 3  # count and xla timed in turns, this many times each
+
+
+def floors_phase(seed: int, reps: int, dev) -> dict:
+    """Spot-check of the thresholds on the card: at n = threshold / 2 and
+    threshold * 2 of each FLOOR_POINTS row, `sort(method="count")` and
+    `sort(method="xla")` in turns (FLOOR_ROUNDS times, the order reversed
+    each round), their median call ms (time_calls) and ratio logged.  It
+    gates on correctness only: count's keys must equal xla's, auto must
+    pick xla below a floor and count from it, and count must take its
+    1024-bucket branch (a K1 launch) exactly from counting.SMALL_MIN_N.
+    The caller counts the kernel launches."""
+    import numpy as np
+    import torch
+
+    import simd_radix_sort_tpu_torch as srs
+    from simd_radix_sort_tpu_torch import methods
+    from simd_radix_sort_tpu_torch.ops import counting, cuda_hist as ch
+    from simd_radix_sort_tpu_torch.utils import data as D, interop
+
+    rows = []
+    for label, dtype, draw, name in FLOOR_POINTS:
+        owner = counting if name == "SMALL_MIN_N" else methods
+        threshold = getattr(owner, name)
+        for n in (threshold // 2, threshold * 2):
+            keys = (k1_keys(dtype, draw, n, seed) if draw == "[-500,500)"
+                    else D.make_keys(n, np.dtype(dtype),
+                                     D.Distribution(draw), seed))
+            kd = interop.from_numpy(keys, dev)
+            pick = methods.resolve("auto", keys.dtype, (), n).name
+            if owner is methods and pick != ("count" if n >= threshold
+                                             else "xla"):
+                raise AssertionError(f"phase 10: {label} n={n}: auto "
+                                     f"picked {pick} about {name}")
+            runs = {m: lambda m=m: srs.sort(kd, method=m, device=dev)
+                    for m in ("count", "xla")}
+            before = ch.LAUNCHES["histogram"]
+            got = runs["count"]()
+            if not torch.equal(signed(got), signed(runs["xla"]())):
+                raise AssertionError(f"phase 10: {label} n={n}: count "
+                                     "differs from xla")
+            branch = ch.LAUNCHES["histogram"] > before
+            if name == "SMALL_MIN_N" and branch != (n >= threshold):
+                raise AssertionError(f"phase 10: {label} n={n}: the "
+                                     f"1024-bucket branch ran: {branch}")
+            ms = {"count": [], "xla": []}
+            for r in range(FLOOR_ROUNDS):
+                for m in (("count", "xla") if r % 2 == 0
+                          else ("xla", "count")):
+                    ms[m].append(time_calls(runs[m], reps))
+            row = {"case": label, "threshold": name, "value": threshold,
+                   "n": n, "auto": pick, "branch": branch,
+                   "count_ms": statistics.median(ms["count"]),
+                   "xla_ms": statistics.median(ms["xla"]),
+                   "count_ms_runs": ms["count"], "xla_ms_runs": ms["xla"]}
+            row["count_over_xla"] = row["count_ms"] / row["xla_ms"]
+            rows.append(row)
+            log(f"phase 10: {json.dumps(row)}")
+            del kd, got
+    return {"points": rows}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=100_000_000)
@@ -2318,7 +2527,7 @@ def main() -> int:
                 ["histogram", "fill_runs_packed"], stream_roofline(1))
     # (k)-(p): the query operators over TPC-H SF10 and the rank and quick
     # engines; top_k and quick reuse (a)'s u64 keys and payloads
-    quick_n = min(QUICK_N, n)
+    quick_n = min(quick_rows(), n)
     tables = tpch_tables(SF10_ORDERS, SF10_LINEITEMS, n, args.seed, dev,
                          u64_pair=(k64, p64))
     k5_launches = {}
@@ -2583,8 +2792,10 @@ def main() -> int:
         timings.append(t)
         log(f"phase 4: {json.dumps(t)}")
 
-    # K1 at the distributions of the main path, S1-S8
+    # K1 at the distributions of the main path, S1-S11; K2 and K3 at the
+    # eight distributions and S6-S8, int32 and int16
     k1_rows = k1_shape_timings(n, args.seed, args.reps, dev, hold)
+    k23_rows = k23_shape_timings(n, args.seed, args.reps, dev, hold)
 
     # K4 and K6 at tiles of 4-64 KiB, past the wrappers: the kernel's
     # device time from events around launches queued while the card spins,
@@ -2688,6 +2899,20 @@ def main() -> int:
     entries["seconds"] = time.perf_counter() - t0
     log(f"phase 9: the entry points in {entries['seconds']:.1f} s")
 
+    # ---- phase 10: the thresholds, count against xla on either side -------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ch.reset_launches()
+    cp.reset_launches()
+    floors = floors_phase(args.seed, args.reps, dev)
+    torch.cuda.synchronize()
+    floors["launches"] = {**ch.LAUNCHES, **cp.LAUNCHES}
+    for name, count in floors["launches"].items():
+        main_launches[name] += count
+    floors["seconds"] = time.perf_counter() - t0
+    log(f"phase 10: the thresholds in {floors['seconds']:.1f} s, launches "
+        f"{json.dumps(floors['launches'])}")
+
     kernels = []
     for name, (replaces, source) in TPU_KERNELS.items():
         t = next(x for x in k1_rows + timings if x["name"] == name)
@@ -2716,7 +2941,8 @@ def main() -> int:
               "cpu_card_agree": agreed,
               "distributed": distributed, "measurement": measurement,
               "workloads": workloads, "drivers": drivers,
-              "entry_points": entries,
+              "entry_points": entries, "floors": floors,
+              "k23_shapes": k23_rows,
               "seconds": time.perf_counter() - t_start}
     if args.out:
         with open(args.out, "w") as f:

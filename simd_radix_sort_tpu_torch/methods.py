@@ -150,43 +150,56 @@ register(SortMethod("cpp", _run_cpp, _supports_all, device=False))
 NOT_YET_PORTED = ()
 
 # Engine crossovers of the static "auto" policy: the smallest n at which
-# keys-only integer keys of each width go to count.  Each is held to the
-# tables in bench_out_h100/ (NVIDIA H100 80GB HBM3 at 700 W; CARD.json
-# there names the commands) by tests/test_torch_auto_policy.py, and moved
-# only as far as those tables require from the JAX package's TPU values
-# (methods.py:191-194).
-# 1-byte keys: the TPU's 2^17 holds.  In large_n/tpe-uint8-Uniform.dat the
-# geometric mean of count/xla over the rows from 2^17 to 2^27 is 0.56
-# (count 1.4-2.0x slower up to 2^20, where a call is a few launches, and
-# 0.16-0.69x from 2^21 on).
-COUNT_CROSSOVER_N_1BYTE = 1 << 17
-# 4-byte keys: the TPU's 2^21 (counting.SMALL_MIN_N, the engine's own
-# 1024-bucket branch gate) holds: int32 and uint32 count medians over the
-# 8 distributions are 1.13-1.27x the best engine at 2^22-2^24 rows.
-COUNT_MIN_N_ADAPTIVE = 1 << 21
-# 2-byte keys: int16 count is 1.54-2.10x xla on all 8 distributions at
-# 2^22 rows (median 1.68) and has a median of 1.42-1.46 at 2^23 (two
-# epochs), 1.27 at 2^24.  One floor for both widths cannot meet the rule
-# at 2^23, where xla on 4-byte Zero/ZeroOne keys is up to 3.1x count
-# (above the rule's 2.5 bound), so the TPU policy's one adaptive floor is
-# split by width.
-COUNT_MIN_N_ADAPTIVE_2BYTE = 1 << 24
+# keys-only integer keys of each type go to count.  Each is the value
+# that tests/test_torch_auto_policy.py's rule gives from the tables in
+# bench_out_h100/ (NVIDIA H100 80GB HBM3 at 700.00 W; CARD.json there
+# names the commands), each row's engines timed in turns.
+# 1-byte keys: the smallest swept n from which count is <= 1.05x xla at
+# every row of every 1-byte sweep to 2^27 (large_n/tpe-uint8-Uniform,
+# -Zero, -Sorted, -ReverseSorted and tpe-int8-Uniform.dat).  Up to 2^23 a
+# count call is host-bound and slower (1.10-1.17x xla at 2^23 on Zero,
+# Sorted and ReverseSorted); from 2^24 it is 0.16-0.79x.  The TPU's value
+# was 2^17.
+COUNT_CROSSOVER_N_1BYTE = 1 << 24
+# 2- and 4-byte keys, per key type: the policy rule (per workload, the median
+# over the 8 distributions of count over the best engine <= 1.35) from the
+# larger of the TPU's 2^21 and counting.SMALL_MIN_N (2^22), the engine's
+# own branch gate.  int32 and uint32: medians 1.24-1.26 at 2^22-2^23,
+# 1.08-1.20 above.
+COUNT_MIN_N_ADAPTIVE = 1 << 22
+# int16: medians 1.76, 1.52, 1.45 and 1.37 at 2^22-2^25, 1.28 at 2^26.
+COUNT_MIN_N_ADAPTIVE_2BYTE = 1 << 26
+# uint16: 1.90, 1.40 and 1.41 at 2^22-2^24, 1.28 at 2^25.  One floor for
+# both 2-byte types cannot meet the rule: at 2^25 int16's median is 1.37,
+# and xla on uint16 ZeroOne keys is 2.97x count (above the rule's 2.5), so
+# the TPU policy's one adaptive floor is split by key type.
+COUNT_MIN_N_ADAPTIVE_UINT16 = 1 << 25
+
+
+def count_floor(key_dtype) -> int:
+    """The smallest n from which "auto" sends keys-only integer keys of
+    `key_dtype` (at most 4 bytes) to count."""
+    kdt = common.np_dtype(key_dtype)
+    if kdt.itemsize == 1:
+        return COUNT_CROSSOVER_N_1BYTE
+    if kdt.itemsize == 2:
+        return (COUNT_MIN_N_ADAPTIVE_UINT16 if kdt.kind == "u"
+                else COUNT_MIN_N_ADAPTIVE_2BYTE)
+    return COUNT_MIN_N_ADAPTIVE
 
 
 def resolve(method: str, key_dtype, payload_dtypes: Sequence, n: int | None,
             device=None) -> SortMethod:
-    """Pick a method; "auto" chooses the engine by key width, payloads and
-    row count as the JAX package's static policy does, with a floor of its
-    own for 2-byte keys (above); "autotune" measures the candidates on
-    `device` (None means "cuda"), which only it reads."""
+    """Pick a method; "auto" chooses the engine by key type, payloads and
+    row count as the JAX package's static policy does, with a floor for
+    each width and for each 2-byte type (count_floor); "autotune"
+    measures the candidates on `device` (None means "cuda"), which only
+    it reads."""
     kdt = common.np_dtype(key_dtype)
     pdts = tuple(common.np_dtype(d) for d in payload_dtypes)
     if method == "auto":
         if _count_supports(kdt, pdts, n):
-            floor = {1: COUNT_CROSSOVER_N_1BYTE,
-                     2: COUNT_MIN_N_ADAPTIVE_2BYTE}.get(kdt.itemsize,
-                                                        COUNT_MIN_N_ADAPTIVE)
-            if n is None or n >= floor:
+            if n is None or n >= count_floor(kdt):
                 return REGISTRY["count"]
         return REGISTRY["xla"]
     if method == "autotune":

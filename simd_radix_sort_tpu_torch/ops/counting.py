@@ -17,8 +17,11 @@ max, read back once per call (one device sync).  The JAX package's
 `mxu_histogram` (an einsum on the TPU's matrix unit, not a Pallas kernel)
 has no counterpart: K1 serves k = 256 and 1024 in its place.
 
-The thresholds are the JAX package's, measured on a TPU; they stand as
-placeholders until the H100 measures its own.
+The thresholds are the H100's: campaign part g (workloads/campaign.py)
+timed the 1024-bucket branch against the comparison-sort fallback and
+`xla` on an NVIDIA H100 80GB HBM3 at 700.00 W, and
+tests/test_torch_branch_gates.py holds each to its table by the rule
+stated beside it.
 """
 
 from __future__ import annotations
@@ -28,12 +31,30 @@ import torch
 from ..utils import common, transforms
 from . import cuda_hist
 
-# Bucket budget of the adaptive branch (counting.py:46).
+# Bucket budget of the adaptive branch: K1's limit (cuda_hist.MAX_HIST_K).
+# Rule: it stays at the limit if the branch beats the fallback at the
+# widest span part g draws, 1023, at every row from SMALL_MIN_N.  It does
+# (bench_out_h100/large_n/gate-<type>-Span1023.dat, NVIDIA H100 80GB HBM3,
+# 700.00 W): branch/fallback 0.31-0.76 at 2^24 rows and 0.16-0.27 at 2^27
+# over int16, uint16, int32 and uint32.
 K_MAX_RANGE = 1024
 # Below this size the adaptive path skips from tiny-range straight to the
-# comparison sort (counting.py:54); "auto" sends no 2- or 4-byte keys to
-# count below it (methods.COUNT_MIN_N_ADAPTIVE, COUNT_MIN_N_ADAPTIVE_2BYTE).
-SMALL_MIN_N = 1 << 21
+# comparison sort; "auto" sends no 2- or 4-byte keys to count below it
+# (methods.COUNT_MIN_N_ADAPTIVE*).  Rule: the smallest power of two from
+# which no row of any large_n/gate-<type>-<shape>.dat (int16, uint16,
+# int32, uint32; Uniform, Zipf, OneValue; 2^14..2^27 rows, 5 rounds of the
+# columns in turns; NVIDIA H100 80GB HBM3, 700.00 W) shows the branch
+# resolvably slower than the fallback: its median above the fallback's
+# with its fastest round slower than the fallback's slowest (the rounds
+# are in bench_out_h100/logs/campaign-gate-<type>.out).  Below 2^24 a
+# call is host-bound (0.1-0.5 ms whatever the branch) and the two medians
+# trade places within overlapping rounds; the last separated row is int16
+# OneValue at 2^21 (branch 1.07x).  From 2^22 the branch's median is at
+# most 1.06x the fallback's, from 2^24 0.17-0.81x.  The medians alone
+# would give 2^24 (uint16 OneValue at 2^23: 1.02x, rounds 0.475-0.539 ms
+# against 0.476-0.616), which leaves no auto floor for 4-byte keys that
+# meets the policy rule (PERF.md, section 6).  The TPU's value was 2^21.
+SMALL_MIN_N = 1 << 22
 # Width of the tiny-range sort's residue histogram.
 K_TINY_RANGE = 16
 

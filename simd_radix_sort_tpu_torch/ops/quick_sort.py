@@ -12,9 +12,8 @@ quicksort variant, quick_sort.hpp):
   * `sort_arrays(...)` — the device quicksort engine (registry "quick"): a
     sampled-splitter multiway partition, then batched block sorts as the
     comparison base case, with the anti-skew fallback.  Its constants
-    (MAX_BUCKETS, OVERSAMPLE, BLOCK, the 4096-row target segment) are the
-    JAX package's, chosen on a TPU, and stay placeholders on the card
-    until they are measured there.
+    (MAX_BUCKETS, OVERSAMPLE, BLOCK, SEGMENT_TARGET) are the H100's:
+    campaign part h's grid (below).
 
   * `sort_np(...)` — the host model with quickRecursion's exact pivot and
     recursion semantics (registry "quickseq"), copied from the JAX package.
@@ -67,14 +66,29 @@ def partition(keys: torch.Tensor, payloads, pivot, ascending: bool = True):
 # Device quicksort engine (sampled-splitter multiway partition)
 # ---------------------------------------------------------------------------
 
-# Max pivots per partition pass.
+# The four constants are the point of campaign part h's grid
+# (bench_out_h100/quick_grid/grid.dat: MAX_BUCKETS 1024/4096/16384 x
+# OVERSAMPLE 16/32/64 x BLOCK 4096/16384/65536 x target BLOCK/8 or
+# BLOCK/4, u64+u64 Uniform, int32 Uniform, double Gaussian and int32
+# Zipf(1.1) at 2^20-2^26 rows, stable too at 2^24; NVIDIA H100 80GB HBM3,
+# 700.00 W) with the lowest median ns per element, points within 2% of it
+# tying and the fewest anti-skew fallbacks winning among ties
+# (tests/test_torch_branch_gates.py).  This point's median is 0.1719
+# ns/element against 0.1807 for the TPU's (1024, 32, 16384, 4096): past
+# MAX_BUCKETS * BLOCK/2 = 2^21 rows it is one plain sort, which on the
+# card beats the partition and cleanup (16 of its 20 cells; 1 fallback).
+# Max pivots per partition pass; the TPU's was the same.
 MAX_BUCKETS = 1024
-# samples per splitter: segment sizes concentrate as ~(1 + 3/sqrt(OS))
-OVERSAMPLE = 32
+# samples per splitter: segment sizes concentrate as ~(1 + 3/sqrt(OS));
+# the TPU's was 32
+OVERSAMPLE = 64
 # Cleanup block width: any key interval of <= BLOCK/2 rows lies inside a
 # block of one of the two offset phases (offset 0 and BLOCK/2), which makes
-# the blocked cleanup exact.
-BLOCK = 16384
+# the blocked cleanup exact.  The TPU's was 16384.
+BLOCK = 4096
+# Rows a segment of the partition aims at (the cmpSortThreshold role),
+# BLOCK/4; the TPU's was 4096.
+SEGMENT_TARGET = 1024
 
 # Which way each call of `sort_arrays` went: one plain sort (below the
 # threshold or past the engine's range), the blocked cleanup, or the
@@ -158,9 +172,7 @@ def sort_arrays(keys: torch.Tensor, payloads=(), ascending: bool = True,
     stream is needed.  The JAX package's `lax.cond` on the largest segment
     is one host read of it here."""
     n = keys.shape[0]
-    # 4096-row target segments: large enough to keep the bucket search
-    # cheap, half the BLOCK/2 engagement bound for sampling headroom
-    thr = 4096 if block_threshold is None else block_threshold
+    thr = SEGMENT_TARGET if block_threshold is None else block_threshold
     c = transforms.to_sortable(keys, ascending).contiguous()
     streams = [c, *(common.as_signed(p) for p in payloads)]
 

@@ -200,17 +200,26 @@ def measure_ns_per_element(method: str, num: int, key_dtype, payload_dtypes,
     total = elapsed_seconds(on, loop)
     if validate and num and out is not None:
         keys, pays_host = datasets[(reps - 1) % len(datasets)][:2]
-        if validate == "device" and m.device:
-            err = _device_validate(out, keys, pays_host, ascending)
-        else:
-            err = D.check_data(interop.to_numpy(out[0]),
-                               tuple(interop.to_numpy(p) for p in out[1]),
-                               keys, ascending)
-        if err:
-            raise WrongOutputError(
-                f"perf measurement produced wrong output ({err}) for "
-                f"{method} {common.type_name(key_dtype)} n={num}")
+        check_output(out, keys, pays_host, ascending,
+                     validate == "device" and m.device,
+                     f"{method} {common.type_name(key_dtype)} n={num}")
     return total / reps / max(num, 1) * 1e9
+
+
+def check_output(out, keys_host, pays_host, ascending: bool,
+                 on_device: bool, what: str) -> None:
+    """Raise WrongOutputError unless `out` = (keys, payloads) sorts
+    `keys_host`/`pays_host`: the device gate when `on_device`, else the
+    host oracle."""
+    if on_device:
+        err = _device_validate(out, keys_host, pays_host, ascending)
+    else:
+        err = D.check_data(interop.to_numpy(out[0]),
+                           tuple(interop.to_numpy(p) for p in out[1]),
+                           keys_host, ascending)
+    if err:
+        raise WrongOutputError(
+            f"perf measurement produced wrong output ({err}) for {what}")
 
 
 def _workload_tag(key_dtype, payload_dtypes, *rest) -> str:

@@ -14,6 +14,20 @@ MIN_N = 2^20: in part b's sweeps (bench_out_h100/tpe-*.dat, H100 80GB
 HBM3 at 700 W), `xla`'s ns/element still falls about as fast as n grows
 up to 2^19 rows, the time of a call nearly constant (a launch floor), and
 from 2^20 on it changes by less than the rows do.
+
+The floors themselves (methods.py):
+  * 1-byte keys: the smallest swept n from which `count` is <= 1.05x
+    `xla` at every row of every 1-byte large-n sweep (campaign part d,
+    uint8 Uniform, Zero, Sorted, ReverseSorted and int8 Uniform, to 2^27
+    rows; each row the two engines in turns, median of the rounds), so
+    every 1-byte key goes through K1 and K4 only where that pays whatever
+    its distribution; the geometric mean rule holds past it too;
+  * 2- and 4-byte keys, per key type: the rule above, from the larger of
+    the TPU's 2^21 and the engine's own branch gate counting.SMALL_MIN_N
+    (a floor below the gate would send keys to count where its
+    1024-bucket branch is skipped): the next power of two past the
+    largest table size at which that key type has a count median above
+    1.35.
 """
 
 import json
@@ -42,9 +56,15 @@ _NAME = re.compile(
 
 MIN_N = 1 << 20
 
-# the JAX package's crossover, measured on a TPU: kept unless the card's
-# tables fail the rule with it
-TPU_COUNT_CROSSOVER_N_1BYTE = 1 << 17
+# the JAX package's adaptive floor, measured on a TPU: the base of the 2-
+# and 4-byte rule
+TPU_COUNT_MIN_N_ADAPTIVE = 1 << 21
+# the 1-byte large-n sweeps (campaign part d) and the sizes the
+# 2- and 4-byte method tables must cover (campaign part f)
+ONE_BYTE_SWEEPS = ("uint8-Uniform", "uint8-Zero", "uint8-Sorted",
+                   "uint8-ReverseSorted", "int8-Uniform")
+SWEEP_MAX_N = 1 << 27
+ADAPTIVE_TABLE_NS = tuple(1 << e for e in range(22, 27))
 
 
 def _method_tables():
@@ -90,16 +110,17 @@ def test_auto_within_tolerance_of_best_recorded():
             f"{med:.2f} across {entries}")
 
 
-FLOORS = {1: methods.COUNT_CROSSOVER_N_1BYTE,
-          2: methods.COUNT_MIN_N_ADAPTIVE_2BYTE,
-          4: methods.COUNT_MIN_N_ADAPTIVE}
+COUNT_TYPES = {1: ("uint8", "int8"), 2: ("int16", "uint16"),
+               4: ("int32", "uint32")}
+FLOORS = {name: methods.count_floor(name)
+          for names in COUNT_TYPES.values() for name in names}
 
 
 def test_auto_crossover_direction():
     """Below the crossover auto uses the comparison sort; above, counting."""
     for kdt in (np.uint8, np.int8, np.int16, np.uint16, np.int32,
                 np.uint32):
-        c = FLOORS[np.dtype(kdt).itemsize]
+        c = FLOORS[np.dtype(kdt).name]
         assert methods.resolve("auto", kdt, (), c - 1).name == "xla"
         assert methods.resolve("auto", kdt, (), c).name == "count"
     # payloads exclude counting at any size
@@ -139,26 +160,45 @@ def test_scaling_tables_support_large_n_count_pick():
     assert gmean <= 1.05, (gmean, ratios)
 
 
+def one_byte_floor():
+    """The 1-byte rule's floor: the smallest swept n from which count is
+    <= 1.05x xla at every row of every ONE_BYTE_SWEEPS sweep; past the
+    largest swept n when count loses some row at the top."""
+    sweeps = [_count_over_xla(os.path.join(LARGE_N_DIR, f"tpe-{s}.dat"))
+              for s in ONE_BYTE_SWEEPS]
+    ns = sorted({n for rows in sweeps for n, _ in rows})
+    for n0 in ns:
+        if all(r <= 1.05 for rows in sweeps for n, r in rows if n >= n0):
+            return n0
+    return 2 * ns[-1]
+
+
 def test_1byte_crossover_moved_only_as_far_as_the_tables_require():
-    """The TPU's value stays if it passes the rule above; otherwise the
-    crossover is the smallest swept n from which the gmean passes."""
+    """The floor is the smallest swept n from which both rules hold on the
+    1-byte sweeps: count <= 1.05x xla at every row (one_byte_floor), and
+    the geometric mean of the uint8 Uniform rows past it <= 1.05."""
     rows = _count_over_xla(os.path.join(LARGE_N_DIR,
                                         "tpe-uint8-Uniform.dat"))
-    assert rows[-1][0] >= 1 << 27, "the sweep must reach 2^27 rows"
-    passing = [n for n, _ in rows
-               if _gmean([r for m, r in rows if m >= n]) <= 1.05]
-    if TPU_COUNT_CROSSOVER_N_1BYTE in passing:
-        assert methods.COUNT_CROSSOVER_N_1BYTE == TPU_COUNT_CROSSOVER_N_1BYTE
-    elif passing:
-        assert methods.COUNT_CROSSOVER_N_1BYTE == min(passing), (passing,
-                                                                 rows)
-    else:  # count wins at no swept size: every uint8 sort goes to xla
-        assert methods.COUNT_CROSSOVER_N_1BYTE > rows[-1][0]
+    assert rows[-1][0] >= SWEEP_MAX_N, "the sweep must reach 2^27 rows"
+    assert methods.COUNT_CROSSOVER_N_1BYTE == one_byte_floor()
+    assert FLOORS["uint8"] == FLOORS["int8"] == one_byte_floor()
+    past = [r for n, r in rows if n >= methods.COUNT_CROSSOVER_N_1BYTE]
+    assert not past or _gmean(past) <= 1.05, past
+
+
+@pytest.mark.parametrize("sweep", ONE_BYTE_SWEEPS)
+def test_1byte_floor_count_within_5_percent_of_xla_on_every_row(sweep):
+    """Every row of every 1-byte sweep from the floor to 2^27: count's
+    median is <= 1.05x xla's (the rows measured in turns)."""
+    rows = _count_over_xla(os.path.join(LARGE_N_DIR, f"tpe-{sweep}.dat"))
+    assert rows[0][0] <= 1 << 14 and rows[-1][0] >= SWEEP_MAX_N
+    late = [(n, r) for n, r in rows if n >= methods.COUNT_CROSSOVER_N_1BYTE]
+    assert all(r <= 1.05 for _, r in late), late
 
 
 def _count_medians(width):
-    """{n: [median over distributions of count/best device engine, per
-    `width`-byte keys-only integer workload]} from the method tables."""
+    """{key type: {n: median over distributions of count/best device
+    engine}} of the `width`-byte keys-only integer method tables."""
     by_workload = {}
     for _, kdt, pdts, n, dist, rows in _method_tables():
         if (n < MIN_N or pdts or np.dtype(kdt).itemsize != width
@@ -169,30 +209,53 @@ def _count_medians(width):
         by_workload.setdefault((np.dtype(kdt).name, n), []).append(
             rows["count"] / best)
     out = {}
-    for (_, n), ratios in by_workload.items():
-        out.setdefault(n, []).append(sorted(ratios)[len(ratios) // 2])
+    for (name, n), ratios in by_workload.items():
+        out.setdefault(name, {})[n] = sorted(ratios)[len(ratios) // 2]
     return out
+
+
+def adaptive_floor(medians) -> int:
+    """The policy rule for one key type's {n: median}: from the larger of the
+    TPU's 2^21 and counting.SMALL_MIN_N, the next power of two past the
+    largest n whose median is above 1.35."""
+    base = max(TPU_COUNT_MIN_N_ADAPTIVE, counting.SMALL_MIN_N)
+    failing = [n for n, med in medians.items() if n >= base and med > 1.35]
+    return 1 << max(failing).bit_length() if failing else base
 
 
 @pytest.mark.parametrize("width", [2, 4])
 def test_adaptive_crossover_moved_only_as_far_as_the_tables_require(width):
-    """The TPU's 2^21 (counting.SMALL_MIN_N) stays unless a workload of
-    that key width has a count median that fails the rule at or past it;
-    then the crossover is the next power of two past the largest such n."""
+    """For each key type of that width, the base (the larger of the TPU's
+    2^21 and counting.SMALL_MIN_N) stays unless a count median fails the
+    rule at or past it; then the crossover is the next power of two past
+    the largest such n."""
     medians = _count_medians(width)
-    assert medians, f"no keys-only {width}-byte method tables"
-    failing = [n for n, meds in medians.items()
-               if n >= counting.SMALL_MIN_N and max(meds) > 1.35]
-    want = (1 << max(failing).bit_length() if failing
-            else counting.SMALL_MIN_N)
-    assert FLOORS[width] == want, medians
+    assert set(medians) == set(COUNT_TYPES[width]), medians
+    for name, meds in medians.items():
+        assert FLOORS[name] == adaptive_floor(meds), (name, meds)
+
+
+@pytest.mark.parametrize("type_name", ["int16", "uint16", "int32",
+                                       "uint32"])
+def test_adaptive_tables_cover_every_size_and_distribution(type_name):
+    """Campaign part f: a keys-only method table of the device engines
+    for each of the 8 distributions at every size from 2^22 to 2^26."""
+    have = {(n, dist) for _, kdt, pdts, n, dist, rows in _method_tables()
+            if np.dtype(kdt).name == type_name and not pdts
+            and {"xla", "radix", "count", "quick"} <= set(rows)}
+    want = {(n, d) for n in ADAPTIVE_TABLE_NS
+            for d in ("Uniform", "Gaussian", "Zero", "ZeroOne", "Sorted",
+                      "ReverseSorted", "AlmostSorted",
+                      "AlmostReverseSorted")}
+    assert want <= have, sorted(want - have)
 
 
 def test_adaptive_crossover_matches_engine_gate():
     """auto must never route to count in a band where the engine's
     1024-bucket branch is skipped."""
-    assert FLOORS[2] >= counting.SMALL_MIN_N
-    assert FLOORS[4] >= counting.SMALL_MIN_N
+    for width in (2, 4):
+        for name in COUNT_TYPES[width]:
+            assert FLOORS[name] >= counting.SMALL_MIN_N, name
 
 
 def test_tables_name_the_card():
@@ -202,3 +265,26 @@ def test_tables_name_the_card():
     for call in card["calls"]:
         assert call["card"].startswith("NVIDIA H100"), call["card"]
         assert call["commands"]
+
+
+# the commit of the campaign's first calls, before K1's redesign
+PRE_K1_REDESIGN = "3bb2b58"
+
+
+def test_count_tables_measured_after_the_k1_redesign():
+    """Every table the floors read was last written by a call that did
+    not run the parent of K1's redesign."""
+    with open(os.path.join(BENCH_DIR, "CARD.json")) as f:
+        calls = json.load(f)["calls"]
+    last = {}
+    for call in calls:
+        for cmd in call["commands"]:
+            for table in cmd["tables"]:
+                last[table] = call["commit"]
+    read = ([f"large_n/tpe-{s}.dat" for s in ONE_BYTE_SWEEPS]
+            + [fname for fname, kdt, pdts, n, *_ in _method_tables()
+               if not pdts and np.dtype(kdt).kind in "ui"
+               and np.dtype(kdt).itemsize <= 4 and n >= MIN_N])
+    stale = [t for t in read
+             if not last.get(t) or last[t].startswith(PRE_K1_REDESIGN)]
+    assert not stale, stale

@@ -288,6 +288,99 @@ def test_large_n_sweep_joins_its_two_gates(small_protocol):
     assert os.listdir(small_protocol) == ["tpe-uint8-Uniform.dat"]
 
 
+def test_interleaved_takes_columns_in_turns(monkeypatch):
+    monkeypatch.setattr(campaign, "ROUNDS", 3)
+    monkeypatch.setattr(tperf, "REPS_NUMERATOR", 128)
+    monkeypatch.setattr(tperf, "WARMUP_NUMERATOR", 64)
+    calls = []
+    cols = {name: (lambda k, p, name=name: calls.append(name))
+            for name in ("a", "b", "c")}
+    times, _ = campaign.interleaved(cols, [(None, ())], 64,
+                                    torch.device("cpu"))
+    assert calls == (["a", "b", "c"] + ["a"] * 2 + ["b"] * 2 + ["c"] * 2
+                     + ["c"] * 2 + ["b"] * 2 + ["a"] * 2
+                     + ["a"] * 2 + ["b"] * 2 + ["c"] * 2)
+    assert {k: len(v) for k, v in times.items()} == {"a": 3, "b": 3, "c": 3}
+
+
+def test_tables_at_one_size_on_cpu(small_protocol):
+    assert campaign.main(["--tables", "uint16", "--n", "512",
+                          "--device", "cpu"]) == 0
+    for dist in D.ALL_DISTRIBUTIONS:
+        head, rows = _table(small_protocol / tperf.table_name(
+            np.uint16, (), dist, 512))
+        assert head == "sort_method nanoseconds_per_element"
+        assert [r[0] for r in rows] == campaign.DEVICE_METHODS
+        assert all(float(r[1]) > 0 for r in rows)
+
+
+def test_gate_part_runs_on_cpu(small_protocol, monkeypatch):
+    monkeypatch.setattr(campaign, "LARGE_N_MIN", 1 << 9)
+    monkeypatch.setattr(campaign, "LARGE_N_MAX", 1 << 10)
+    monkeypatch.setattr(campaign, "GATE_SPAN_NS", (1 << 10,))
+    from simd_radix_sort_tpu_torch.ops import counting
+    gate = counting.SMALL_MIN_N
+    for type_name in ("int16", "uint32"):
+        assert campaign.main(["--gate", type_name, "--device", "cpu"]) == 0
+    assert counting.SMALL_MIN_N == gate
+    names = sorted(os.listdir(small_protocol / "large_n"))
+    shapes = [*campaign.GATE_SHAPES,
+              *(f"Span{s}" for s in campaign.GATE_SPANS)]
+    assert names == sorted(f"gate-{t}-{s}.dat" for t in ("int16", "uint32")
+                           for s in shapes)
+    head, rows = _table(small_protocol / "large_n" / "gate-int16-Zipf.dat")
+    assert head == "number_of_elements branch fallback xla"
+    assert [int(r[0]) for r in rows] == [512, 1024]
+    head, rows = _table(small_protocol / "large_n" / "gate-uint32-Span16.dat")
+    assert [int(r[0]) for r in rows] == [1024]
+    # a second run finds its tables and skips them
+    before = {n: (small_protocol / "large_n" / n).stat().st_mtime
+              for n in names}
+    assert campaign.main(["--gate", "int16", "--device", "cpu"]) == 0
+    assert before == {n: (small_protocol / "large_n" / n).stat().st_mtime
+                      for n in names}
+
+
+@pytest.mark.parametrize("shape", ["Uniform", "Zipf", "OneValue", "Span16",
+                                   "Span1023"])
+def test_gate_values_take_the_branch(shape):
+    from simd_radix_sort_tpu_torch.ops import counting
+    for unsigned in (False, True):
+        v = campaign.gate_values(shape, unsigned, 1 << 12, 3)
+        span = int(v.max()) - int(v.min())
+        assert counting.K_TINY_RANGE <= span < counting.K_MAX_RANGE
+        assert not unsigned or v.min() >= 0
+    if shape.startswith("Span"):
+        assert span == int(shape[4:])
+
+
+def test_quick_grid_runs_on_cpu(small_protocol, monkeypatch):
+    from simd_radix_sort_tpu_torch.ops import quick_sort
+    monkeypatch.setattr(campaign, "QUICK_GRID", {
+        "max_buckets": (4, 16), "oversample": (16,), "block": (256, 1024),
+        "target_divisor": (8, 4)})
+    monkeypatch.setattr(campaign, "QUICK_NS", (1 << 10, 1 << 12))
+    monkeypatch.setattr(campaign, "QUICK_STABLE_NS", (1 << 12,))
+    monkeypatch.setattr(campaign, "QUICK_LOOP_ROWS", 1 << 12)
+    saved = (quick_sort.MAX_BUCKETS, quick_sort.OVERSAMPLE,
+             quick_sort.BLOCK, quick_sort.SEGMENT_TARGET)
+    assert campaign.main(["--quick-grid", "--device", "cpu"]) == 0
+    assert saved == (quick_sort.MAX_BUCKETS, quick_sort.OVERSAMPLE,
+                     quick_sort.BLOCK, quick_sort.SEGMENT_TARGET)
+    head, rows = _table(small_protocol / "quick_grid" / "grid.dat")
+    assert head == campaign.QUICK_HEADER
+    points = campaign.quick_points()
+    assert len(points) == 8
+    # 4 workloads x (2 sizes + stable at one)
+    assert len(rows) == len(points) * 12
+    assert {tuple(map(int, r[:4])) for r in rows} == set(points)
+    assert {r[4] for r in rows} == {"uint64-uint64-Uniform", "int32-Uniform",
+                                    "double-Gaussian", "int32-Zipf"}
+    assert {r[8] for r in rows} <= set(quick_sort.PATHS)
+    assert {r[8] for r in rows} >= {"one_sort", "blocked"}
+    assert all(float(r[7]) > 0 for r in rows)
+
+
 def test_campaign_parts_name_real_driver_options():
     for cmds in campaign.PARTS.values():
         for argv in cmds:
@@ -299,7 +392,8 @@ def test_campaign_parts_name_real_driver_options():
                 assert flag in Path(mod.__file__).read_text(), (argv, flag)
     sweeps = [a[2] for a in campaign.PARTS["d"]]
     assert sweeps == ["uint8-Uniform", "int32-Uniform", "int32-Zero",
-                      "int32-ZeroOne"]
+                      "int32-ZeroOne", "uint8-Zero", "uint8-Sorted",
+                      "uint8-ReverseSorted", "int8-Uniform"]
 
 
 @pytest.mark.parametrize("driver,argv", [

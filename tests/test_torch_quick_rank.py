@@ -173,11 +173,15 @@ def test_quick_fallback_on_skewed_data(dist, stable):
     assert tdata.check_data(_np(got[0]), [_np(got[1])], keys) == ""
 
 
-@pytest.mark.parametrize("n", [0, 1, 2, 4096, 4097])
+@pytest.mark.parametrize("n", [0, 1, 2, 4096, 4097,
+                               tquick.SEGMENT_TARGET,
+                               tquick.SEGMENT_TARGET + 1])
 def test_quick_one_sort_below_the_threshold(n):
+    """One plain sort up to the target segment (SEGMENT_TARGET rows), the
+    partition and blocked cleanup past it."""
     keys = _keys(n, np.int64)
     pays = tdata.make_payloads(keys, [np.uint8])
-    path = "one_sort" if n <= 4096 else "blocked"
+    path = "one_sort" if n <= tquick.SEGMENT_TARGET else "blocked"
     got = _quick(keys, pays, path, stable=True)
     want = jsrs.sort(keys, *pays, method="quick", stable=True)
     for g, w in zip(got, want):

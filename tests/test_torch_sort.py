@@ -91,8 +91,10 @@ def test_count_engine_matches_jax(dtype):
 
 
 def test_count_small_branch_at_2_21_matches_jax(monkeypatch):
-    """n = 2^21 int16 keys with range < 1024 take the 1024-bucket branch
-    (K3, then K1 with k = 1024 and K4) in both packages."""
+    """n = counting.SMALL_MIN_N int16 keys with range < 1024 take the
+    port's 1024-bucket branch (K3, then K1 with k = 1024 and K4), equal
+    to the JAX package's sort (its own branch from 2^21 rows); one row
+    fewer takes the comparison sort."""
     ks = []
     real = cuda_hist.histogram
 
@@ -102,11 +104,14 @@ def test_count_small_branch_at_2_21_matches_jax(monkeypatch):
 
     monkeypatch.setattr(cuda_hist, "histogram", spy)
     rng = np.random.default_rng(9)
-    keys = rng.integers(-400, 400, 1 << 21).astype(np.int16)
+    keys = rng.integers(-400, 400, counting.SMALL_MIN_N).astype(np.int16)
     for asc in (True, False):
         got = tsrs.sort(keys, ascending=asc, method="count", device="cpu")
         want = jsrs.sort(keys, ascending=asc, method="count")
         assert _bytes_equal(_np(got), want)
+    assert ks == [counting.K_MAX_RANGE] * 2
+    got = tsrs.sort(keys[1:], method="count", device="cpu")
+    assert _bytes_equal(_np(got), np.sort(keys[1:]))
     assert ks == [counting.K_MAX_RANGE] * 2
 
 
@@ -122,13 +127,16 @@ def test_count_wide_range_falls_back_to_comparison_sort(monkeypatch):
 
 def test_resolve_auto_matches_jax(monkeypatch):
     """The port's policy has the JAX package's form, with the adaptive
-    floor split by key width: given the port's own crossovers for the key's
-    width (measured on an H100, tests/test_torch_auto_policy.py), the JAX
-    policy picks the same engine for every (dtype, payloads) case, at and
-    around both packages' crossovers."""
+    floor split by key type: given the port's own crossovers for the key's
+    type, the JAX policy picks the same engine for every (dtype, payloads)
+    case, at and around both packages' crossovers.  The port's crossovers
+    are those the H100's tables give by tests/test_torch_auto_policy.py's
+    rules."""
+    import test_torch_auto_policy as policy
+
     c1 = tmethods.COUNT_CROSSOVER_N_1BYTE
-    floors = {2: tmethods.COUNT_MIN_N_ADAPTIVE_2BYTE,
-              4: tmethods.COUNT_MIN_N_ADAPTIVE}
+    floors = {name: tmethods.count_floor(name)
+              for name in ("int16", "uint16", "int32", "uint32")}
     j1, ja = jmethods.COUNT_CROSSOVER_N_1BYTE, jmethods.COUNT_MIN_N_ADAPTIVE
     sizes = [0, 4096, 10**8, None]
     for c in (c1, *floors.values(), j1, ja):
@@ -136,14 +144,18 @@ def test_resolve_auto_matches_jax(monkeypatch):
     monkeypatch.setattr(jmethods, "COUNT_CROSSOVER_N_1BYTE", c1)
     for kdt in DTYPES:
         monkeypatch.setattr(jmethods, "COUNT_MIN_N_ADAPTIVE",
-                            floors.get(np.dtype(kdt).itemsize, 0))
+                            floors.get(np.dtype(kdt).name, 0))
         for pays in ((), (np.uint32,), (np.float64, np.uint8)):
             for n in sizes:
                 want = jmethods.resolve("auto", kdt, pays, n).name
                 assert tmethods.resolve("auto", kdt, pays, n).name == want, \
                     (kdt, pays, n)
-    # the 1-byte and 4-byte crossovers are the TPU's; only 2-byte keys moved
-    assert (c1, floors[4]) == (j1, ja)
+    # every floor is the one the H100's tables give by its rule, and none
+    # lies below the engine's own branch gate
+    assert c1 == policy.one_byte_floor()
+    for width in (2, 4):
+        for name, meds in policy._count_medians(width).items():
+            assert floors[name] == policy.adaptive_floor(meds), name
     assert min(floors.values()) >= counting.SMALL_MIN_N
 
 
