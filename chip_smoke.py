@@ -58,7 +58,10 @@ Phases, each raising on failure:
      K1 at the distributions the count engine hands it (K1_SHAPES,
      k1_shape_timings: S1-S8, and S9-S11 on int16 keys at k = 1024); K2
      and K3 at the reference's eight distributions of int32 and int16
-     keys and at S6-S8's draws (k23_shape_timings).
+     keys and at S6-S8's draws (k23_shape_timings), each held against its
+     plain version there and first on the inputs that reach every path of
+     their kernels (k23_edge_holds: cuda_hist.k23_edge_cases, the rows of
+     one residue at --n, at 2 and 4 bytes, K3 also at a 64-byte tile).
   5. the distributed tier (simd_radix_sort_tpu_torch/parallel/) on P NCCL
      ranks, one card each, P the largest of 1, 2, 4 that the machine has
      (P = 1 runs in this process, P > 1 in spawned ones), each rank making
@@ -503,6 +506,59 @@ K23_DISTRIBUTIONS = ("Uniform", "Gaussian", "Zero", "ZeroOne", "Sorted",
                      "ReverseSorted", "AlmostSorted", "AlmostReverseSorted")
 
 
+# K2's and K3's device ms before their redesign (the kernels of fedece8),
+# by row name and shape, at n = 10^8, seed 42: the median of two
+# k23_shape_timings runs of that checkout on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, taken in turns with the redesigned kernels by
+# workloads/kernel_ab.py (PERF.md)
+PARENT_K23_DEVICE_MS = {
+    "minmax_hist16 int32 Uniform": 0.2000,
+    "tiny_sort16 int32 Uniform": 0.3404,
+    "minmax_hist16 int32 Gaussian": 0.2001,
+    "tiny_sort16 int32 Gaussian": 0.3409,
+    "minmax_hist16 int32 Zero": 0.1991,
+    "tiny_sort16 int32 Zero": 0.3402,
+    "minmax_hist16 int32 ZeroOne": 0.1992,
+    "tiny_sort16 int32 ZeroOne": 0.3406,
+    "minmax_hist16 int32 Sorted": 0.2001,
+    "tiny_sort16 int32 Sorted": 0.3405,
+    "minmax_hist16 int32 ReverseSorted": 0.2002,
+    "tiny_sort16 int32 ReverseSorted": 0.3406,
+    "minmax_hist16 int32 AlmostSorted": 0.2000,
+    "tiny_sort16 int32 AlmostSorted": 0.3413,
+    "minmax_hist16 int32 AlmostReverseSorted": 0.2002,
+    "tiny_sort16 int32 AlmostReverseSorted": 0.3406,
+    "minmax_hist16 int32 S6 [-500,500)": 0.2000,
+    "tiny_sort16 int32 S6 [-500,500)": 0.3407,
+    "minmax_hist16 int32 S7 Zipf(1.1) mod 1000": 0.1999,
+    "tiny_sort16 int32 S7 Zipf(1.1) mod 1000": 0.3409,
+    "minmax_hist16 int32 S8 99% one value": 0.1998,
+    "tiny_sort16 int32 S8 99% one value": 0.3414,
+    "minmax_hist16 int16 Uniform": 0.1825,
+    "tiny_sort16 int16 Uniform": 0.2683,
+    "minmax_hist16 int16 Gaussian": 0.1826,
+    "tiny_sort16 int16 Gaussian": 0.2682,
+    "minmax_hist16 int16 Zero": 0.1816,
+    "tiny_sort16 int16 Zero": 0.2687,
+    "minmax_hist16 int16 ZeroOne": 0.1817,
+    "tiny_sort16 int16 ZeroOne": 0.2686,
+    "minmax_hist16 int16 Sorted": 0.1824,
+    "tiny_sort16 int16 Sorted": 0.2681,
+    "minmax_hist16 int16 ReverseSorted": 0.1825,
+    "tiny_sort16 int16 ReverseSorted": 0.2680,
+    "minmax_hist16 int16 AlmostSorted": 0.1825,
+    "tiny_sort16 int16 AlmostSorted": 0.2680,
+    "minmax_hist16 int16 AlmostReverseSorted": 0.1826,
+    "tiny_sort16 int16 AlmostReverseSorted": 0.2682,
+    "minmax_hist16 int16 S6 [-500,500)": 0.1827,
+    "tiny_sort16 int16 S6 [-500,500)": 0.2681,
+    "minmax_hist16 int16 S7 Zipf(1.1) mod 1000": 0.1825,
+    "tiny_sort16 int16 S7 Zipf(1.1) mod 1000": 0.2683,
+    "minmax_hist16 int16 S8 99% one value": 0.1824,
+    "tiny_sort16 int16 S8 99% one value": 0.2694,
+}
+
+
 def device_keys(dtype: str, dist: str, n: int, gen, dev):
     """int16 or int32 keys of one of the reference's eight distributions
     (utils/data.py's definitions), drawn on the card from `gen`: Uniform
@@ -539,20 +595,65 @@ def device_keys(dtype: str, dist: str, n: int, gen, dev):
     return keys
 
 
+def k23_bare(v, flip: int, tile: int, dev):
+    """K2, then K3's fill with a tile of `tile` bytes, as bare launches past
+    the wrappers (and their launch counts): the stats and the output."""
+    import torch
+
+    from simd_radix_sort_tpu_torch.ops import _build, cuda_hist as ch
+
+    stats = torch.empty(ch.STATS_WORDS, dtype=torch.int32, device=dev)
+    out = torch.empty_like(v)
+    w, size = v.element_size(), v.numel()
+    _build.launch("srs_minmax_hist16", dev, v.data_ptr(), w, size, flip,
+                  stats.data_ptr())
+    _build.launch("srs_fill16", dev, stats.data_ptr(), w, size, flip, tile,
+                  out.data_ptr())
+    return stats, out
+
+
+def k23_edge_holds(n: int, dev, hold) -> None:
+    """K2 and K3 held against their plain versions through `hold` on the
+    inputs that reach every path of their kernels (cuda_hist.k23_edge_cases,
+    the CPU tests' cases with the rows of one residue at n), at 2 and 4
+    bytes: through the wrappers, and K3 also as bare launches at a 64-byte
+    tile, where runs meet many tiles' edges."""
+    import torch
+
+    from simd_radix_sort_tpu_torch.ops import cuda_hist as ch
+
+    for width in (2, 4):
+        for label, (c, flip, start) in ch.k23_edge_cases(width, n).items():
+            v = torch.from_numpy(c).to(dev)[start:]
+            want = ch.minmax_hist16_plain(v, flip)
+            hold("minmax_hist16", ch.minmax_hist16(v, flip), want,
+                 f"{label} w={width}")
+            sorted_want = ch.tiny_sort16_plain(v, flip)
+            hold("tiny_sort16", ch.tiny_sort16(v, flip), sorted_want,
+                 f"{label} w={width}")
+            stats, out = k23_bare(v, flip, 64, dev)
+            hold("tiny_sort16", (out, stats[:2].to(torch.int64) & 0xFFFFFFFF,
+                                 stats[2:18]),
+                 (sorted_want[0], torch.stack(want[:2]), want[2]),
+                 f"{label} w={width} tile=64")
+
+
 def k23_shape_timings(n: int, seed: int, reps: int, dev, hold) -> list:
     """Phase 4's K2 and K3 rows: n keys of int32 and int16 at the eight
     distributions (device_keys) and at S6-S8's draws (k1_keys): each
     kernel's device ms (event_device_ms of bare launches, K1_SPREAD_RUNS
     times: median and runs; K3 is K2's launch and its fill), the
     wrapper's call ms, the bound (K2 reads the keys once, K3 also writes
-    them once, at the card's memory rate) and device/bound.  The bare
+    them once, at the card's memory rate), device/bound and the device ms
+    of the kernels before their redesign (PARENT_K23_DEVICE_MS).  The bare
     launches' outputs are held against the plain versions through
-    `hold`."""
+    `hold`, and so are both kernels on k23_edge_holds' inputs first."""
     import torch
 
     from simd_radix_sort_tpu_torch.models import roofline
     from simd_radix_sort_tpu_torch.ops import _build, cuda_hist as ch
 
+    k23_edge_holds(n, dev, hold)
     chip = roofline.chip_for_name(torch.cuda.get_device_name(0))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -572,7 +673,8 @@ def k23_shape_timings(n: int, seed: int, reps: int, dev, hold) -> list:
             x = make()
             w = x.element_size()
             flip = 1 << (8 * w - 1)
-            stats = torch.empty(18, dtype=torch.int32, device=dev)
+            stats = torch.empty(ch.STATS_WORDS, dtype=torch.int32,
+                                device=dev)
             out = torch.empty_like(x)
 
             def k2():
@@ -581,7 +683,7 @@ def k23_shape_timings(n: int, seed: int, reps: int, dev, hold) -> list:
 
             def fill():
                 _build.launch("srs_fill16", dev, stats.data_ptr(), w, n,
-                              flip, out.data_ptr())
+                              flip, ch.FILL_TILE_BYTES, out.data_ptr())
 
             for name, launches, nbytes in (("minmax_hist16", [k2], n * w),
                                            ("tiny_sort16", [k2, fill],
@@ -591,7 +693,7 @@ def k23_shape_timings(n: int, seed: int, reps: int, dev, hold) -> list:
                 for launch in launches:
                     launch()
                 mn, mx, hist = ch.minmax_hist16_plain(x, flip)
-                got = [stats[:2].to(torch.int64) & 0xFFFFFFFF, stats[2:]]
+                got = [stats[:2].to(torch.int64) & 0xFFFFFFFF, stats[2:18]]
                 want = [torch.stack((mn, mx)), hist]
                 if name == "tiny_sort16":
                     got, want = [out], [ch.tiny_sort16_plain(x, flip)[0]]
@@ -602,6 +704,8 @@ def k23_shape_timings(n: int, seed: int, reps: int, dev, hold) -> list:
                 wrapper = getattr(ch, name)
                 row = {"name": name, "shape": f"{dtype} {shape}", "n": n,
                        "device_ms": device_ms, "device_ms_runs": runs,
+                       "parent_device_ms": PARENT_K23_DEVICE_MS.get(
+                           f"{name} {dtype} {shape}"),
                        "spread": max(runs) / min(runs),
                        "ms": time_calls(lambda: wrapper(x, flip), reps),
                        "bound_ms": bound, "bound_by": "bytes",

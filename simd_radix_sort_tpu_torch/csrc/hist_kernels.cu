@@ -22,49 +22,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;  // 8 x 256 threads fill an SM's 2048 slots
 constexpr int kHistThreads = 512;  // K1's blocks (one wave of them)
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// Blocks for a grid-stride pass over n elements of `width` bytes, each thread
-// taking 16 bytes per step: enough to fill every SM, no more.
-int grid_for(long long n, int width) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long per = 16 / width;
-  const long long vecs = (n + per - 1) / per;
-  long long blocks = (vecs + kThreads - 1) / kThreads;
-  const long long cap = (long long)(sms > 0 ? sms : 1) * kBlocksPerSm;
-  if (blocks > cap) blocks = cap;
-  return blocks < 1 ? 1 : (int)blocks;
-}
-
-// Calls f(x[i]) for every i < n in a grid-stride loop that loads 16 bytes a
-// thread where the pointer allows it; the ragged tail goes element-wise.
-template <typename T, typename F>
-__device__ __forceinline__ void for_each(const T* __restrict__ x, long long n,
-                                         F&& f) {
-  constexpr int kPer = 16 / sizeof(T);
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long head = 0;
-  if (aligned16(x)) {
-    const long long nvec = n / kPer;
-    const uint4* xv = reinterpret_cast<const uint4*>(x);
-    for (long long v = tid; v < nvec; v += stride) {
-      const uint4 w = xv[v];
-      T e[kPer];
-      memcpy(e, &w, sizeof(w));
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) f(e[j]);
-    }
-    head = nvec * kPer;
-  }
-  for (long long i = head + tid; i < n; i += stride) f(x[i]);
 }
 
 // The least b in [lo, hi] with i < cum[b + 1], or hi if there is none.
@@ -83,40 +44,6 @@ __device__ __forceinline__ int bucket_in(const long long* cum, int lo, int hi,
 __device__ __forceinline__ int bucket_of(const long long* cum, int k,
                                          long long i) {
   return bucket_in(cum, 0, k - 1, i);
-}
-
-// out[i] = (T)(base + bucket_of(i)) ^ flip for every i < n, 16 bytes a
-// thread.  Inside one vector the bucket only moves forward, so a single
-// search per vector plus a short walk over the run boundaries it crosses
-// serves all of its elements.
-template <typename T>
-__device__ __forceinline__ void paint_runs(const long long* cum, int k,
-                                           long long n, unsigned base, T flip,
-                                           T* __restrict__ out) {
-  constexpr int kPer = 16 / sizeof(T);
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  long long head = 0;
-  if (aligned16(out)) {
-    const long long nvec = n / kPer;
-    uint4* ov = reinterpret_cast<uint4*>(out);
-    for (long long v = tid; v < nvec; v += stride) {
-      const long long i0 = v * kPer;
-      int b = bucket_of(cum, k, i0);
-      T e[kPer];
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        while (b < k - 1 && cum[b + 1] <= i0 + j) ++b;
-        e[j] = (T)((T)(base + (unsigned)b) ^ flip);
-      }
-      uint4 w;
-      memcpy(&w, e, sizeof(w));
-      ov[v] = w;
-    }
-    head = nvec * kPer;
-  }
-  for (long long i = head + tid; i < n; i += stride)
-    out[i] = (T)((T)(base + (unsigned)bucket_of(cum, k, i)) ^ flip);
 }
 
 // K1.  Replaces pallas_hist.py:_hist_kernel / histogram (a (k, 128)
@@ -261,75 +188,135 @@ __global__ void __launch_bounds__(kHistThreads)
 
 // K2.  Replaces pallas_hist.py:_minmax_hist16_kernel / minmax_hist16.
 // stats[0] = min u, stats[1] = max u, stats[2 + b] = #{u & 15 == b}, where
-// u = (T)(x ^ flip) zero-extended to 32 bits; stats must hold
-// (0xFFFFFFFF, 0, 0, ...) on entry.  Bound: reading n * sizeof(T) bytes.
-// Min, max and the 16 counts live in registers (the residue test is
-// unrolled, so no counter array spills), are reduced with warp shuffles and
-// shared memory, and reach device memory as 18 atomics per block.  CUDA has
-// unsigned atomics, so the TPU's sign flip into int32 is not needed.
-template <typename T>
-__global__ void minmax_hist16_kernel(const T* __restrict__ x, long long n,
-                                     T flip, unsigned* __restrict__ stats) {
-  __shared__ unsigned block_stats[18];
-  if (threadIdx.x < 18) block_stats[threadIdx.x] = threadIdx.x ? 0u : ~0u;
-  __syncthreads();
-  unsigned mn = ~0u, mx = 0u;
-  unsigned cnt[16];
-#pragma unroll
-  for (int b = 0; b < 16; ++b) cnt[b] = 0;
-  for_each(x, n, [&](T v) {
-    const unsigned u = (T)(v ^ flip);
-    mn = min(mn, u);
-    mx = max(mx, u);
-    const unsigned low = u & 15u;
-#pragma unroll
-    for (int b = 0; b < 16; ++b) cnt[b] += (low == (unsigned)b);
-  });
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
-    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-#pragma unroll
-    for (int b = 0; b < 16; ++b)
-      cnt[b] += __shfl_xor_sync(0xffffffffu, cnt[b], off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    atomicMin(&block_stats[0], mn);
-    atomicMax(&block_stats[1], mx);
-#pragma unroll
-    for (int b = 0; b < 16; ++b)
-      if (cnt[b]) atomicAdd(&block_stats[2 + b], cnt[b]);
-  }
-  __syncthreads();
-  const unsigned t = threadIdx.x;
-  if (t == 0) atomicMin(&stats[0], block_stats[0]);
-  else if (t == 1) atomicMax(&stats[1], block_stats[1]);
-  else if (t < 18 && block_stats[t]) atomicAdd(&stats[t], block_stats[t]);
-}
+// u = (T)(x ^ flip) zero-extended to 32 bits.  stats[18] (the min,
+// complemented) and stats[19] (the blocks' ticket) are the kernel's own.
+// All kStatsWords words must be 0 on entry: zero is every field's identity,
+// so one memset is the whole initialisation, and the last block to finish
+// writes stats[0].  CUDA has unsigned atomics, so the TPU's sign flip into
+// int32 is not needed.  Bound: reading n * sizeof(T) bytes.
+//
+// Sixteen compare-and-adds a row (about 36 integer instructions) made the
+// pass bound by the instructions it issued, 3.1x its bound on 2-byte keys
+// (an H100 80GB HBM3 at 700 W).  So a row costs a few instructions here,
+// and the pass is bound by memory: 1.10-1.21x its bound on every
+// distribution on the same card (PERF.md):
+// - min and max fold two words into the accumulator with one DPX
+//   instruction each, __vimin3_u16x2 / __vimax3_u16x2 on the two rows of a
+//   word of 2-byte rows, __vimin3_u32 / __vimax3_u32 on 4-byte rows; on
+//   sm_90a each is one VIMNMX3 instruction (cuobjdump -sass);
+// - each row is counted with one shared-memory atomic into lane-copied
+//   counters, (b, lane) at int index b * 32 + lane (2 KB a block), so a
+//   warp's 32 lanes hit 32 banks whatever the data; for 2-byte rows the
+//   byte offsets of a word's two rows are built at once in its 16-bit
+//   halves, as K1 does for 1-byte rows;
+// - each thread keeps two 16-byte loads in flight, and the grid is one wave
+//   of kStatsThreads-thread blocks.
+// Measured and not kept, since the device time did not move: K1's
+// one-atomic count of a vector whose rows are equal, and two-input
+// __vminu2 / __vmaxu2 in place of the DPX folds.
+constexpr int kStatsThreads = 512;  // one warp a residue at the block's end
+constexpr int kStatsWords = 20;     // cuda_hist.STATS_WORDS
+static_assert(kStatsThreads == 16 * 32, "one counter a thread to clear");
 
-// K3, second launch.  Replaces the paint phase of
-// pallas_hist.py:_tiny_sort_kernel / tiny_sort16.  The TPU kernel runs its
-// stats phase and its paint phase as one sequential grid; CUDA blocks run
-// concurrently, so the stats come from a finished minmax_hist16_kernel launch
-// on the same stream instead.  Each block rotates the residue histogram by
-// min & 15 into the 16 true counts (exact whenever max - min < 16), prefix
-// sums them in shared memory and paints its part of the output:
-// out[i] = (T)(min + bucket) ^ flip.  Bound: writing n * sizeof(T) bytes.
 template <typename T>
-__global__ void fill16_kernel(const unsigned* __restrict__ stats, long long n,
-                              T flip, T* __restrict__ out) {
-  __shared__ long long cum[17];
-  const unsigned mn = stats[0];
+__global__ void __launch_bounds__(kStatsThreads)
+    minmax_hist16_kernel(const T* __restrict__ x, long long n, T flip,
+                         unsigned* __restrict__ stats) {
+  __shared__ int counts[16 * 32];  // [residue][lane]
+  __shared__ unsigned block_mm[2];  // ~min, max
+  counts[threadIdx.x] = 0;
+  if (threadIdx.x < 2) block_mm[threadIdx.x] = 0;
+  __syncthreads();
+  constexpr bool kHalves = sizeof(T) == 2;  // two rows a 32-bit word
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr uint32_t kSplat = kHalves ? 0x10001u : 1u;
+  const int lane = threadIdx.x & 31;
+  char* const smem = reinterpret_cast<char*>(counts);
+  const uint32_t flips = (uint32_t)flip * kSplat;
+  // counter (b, lane) sits at byte offset b * 128 + lane * 4 < 2^11
+  const uint32_t lane4 = (uint32_t)lane * 4;
+  const uint32_t lanes = lane4 * kSplat;
+  constexpr uint32_t kRes = (15u << 7) * kSplat;
+  uint32_t mn = ~0u, mx = 0u;  // for 2-byte rows, per 16-bit half
+  auto fold = [&](uint32_t a, uint32_t b) {
+    if constexpr (kHalves) {
+      mn = __vimin3_u16x2(mn, a, b);
+      mx = __vimax3_u16x2(mx, a, b);
+    } else {
+      mn = __vimin3_u32(mn, a, b);
+      mx = __vimax3_u32(mx, a, b);
+    }
+  };
+  auto count = [&](uint32_t off) {
+    atomicAdd(reinterpret_cast<int*>(smem + off), 1);
+  };
+  auto count_word = [&](uint32_t u) {  // a word of flipped rows
+    const uint32_t off = ((u << 7) & kRes) | lanes;
+    if constexpr (kHalves) {
+      count(off & 0xFFFFu);
+      count(off >> 16);
+    } else {
+      count(off);
+    }
+  };
+  auto stats_vector = [&](uint4 w) {
+    w.x ^= flips;
+    w.y ^= flips;
+    w.z ^= flips;
+    w.w ^= flips;
+    fold(w.x, w.y);
+    fold(w.z, w.w);
+    count_word(w.x);
+    count_word(w.y);
+    count_word(w.z);
+    count_word(w.w);
+  };
+  const long long tid = (long long)blockIdx.x * kStatsThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kStatsThreads;
+  long long head = 0;
+  if (aligned16(x)) {
+    const long long nvec = n / kPer;
+    const uint4* xv = reinterpret_cast<const uint4*>(x);
+    long long v = tid;
+    for (; v + stride < nvec; v += 2 * stride) {
+      const uint4 a = xv[v], b = xv[v + stride];
+      stats_vector(a);
+      stats_vector(b);
+    }
+    if (v < nvec) stats_vector(xv[v]);
+    head = nvec * kPer;
+  }
+  // the ragged tail, or all of an input that is not 16-byte aligned
+  for (long long i = head + tid; i < n; i += stride) {
+    const uint32_t u = (T)(x[i] ^ flip);
+    fold(u * kSplat, u * kSplat);
+    count(((u << 7) & (15u << 7)) | lane4);
+  }
+  if constexpr (kHalves) {
+    mn = min(mn & 0xFFFFu, mn >> 16);
+    mx = max(mx & 0xFFFFu, mx >> 16);
+  }
+  mn = __reduce_min_sync(0xffffffffu, mn);
+  mx = __reduce_max_sync(0xffffffffu, mx);
+  __syncthreads();
+  // warp w sums residue w's 32 copies
+  const int warp = threadIdx.x >> 5;
+  const int c = __reduce_add_sync(0xffffffffu, counts[warp * 32 + lane]);
+  if (lane == 0) {
+    atomicMax(&block_mm[0], ~mn);
+    atomicMax(&block_mm[1], mx);
+    if (c) atomicAdd(&stats[2 + warp], (unsigned)c);
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
-    long long c = 0;
-    cum[0] = 0;
-    for (int j = 0; j < 16; ++j) {
-      c += stats[2 + ((mn + (unsigned)j) & 15u)];
-      cum[j + 1] = c;
+    atomicMax(&stats[18], block_mm[0]);
+    atomicMax(&stats[1], block_mm[1]);
+    __threadfence();
+    if (atomicAdd(&stats[19], 1u) == gridDim.x - 1) {
+      __threadfence();  // every block's stats[18] is in
+      stats[0] = ~atomicMax(&stats[18], 0u);
     }
   }
-  __syncthreads();
-  paint_runs<T>(cum, 16, n, mn, flip, out);
 }
 
 constexpr int kMaxFillK = 4096;  // cuda_hist.MAX_FILL_K
@@ -405,7 +392,7 @@ __device__ __forceinline__ uint4 splat(T v) {
 template <typename T>
 __device__ __forceinline__ void fill_tiles(const long long* cum, int k,
                                            long long nvec, unsigned base,
-                                           long long tile_vecs,
+                                           T flip, long long tile_vecs,
                                            uint4* __restrict__ out) {
   constexpr int kPer = 16 / sizeof(T);
   __shared__ int bounds[2][2];  // [tile parity][first, last]: one sync a tile
@@ -420,7 +407,7 @@ __device__ __forceinline__ void fill_tiles(const long long* cum, int k,
     __syncthreads();
     const int b_lo = bounds[parity][0], b_hi = bounds[parity][1];
     if (b_lo == b_hi) {
-      const uint4 w = splat<T>((T)(base + (unsigned)b_lo));
+      const uint4 w = splat<T>((T)((T)(base + (unsigned)b_lo) ^ flip));
       for (long long v = v0 + threadIdx.x; v < v1; v += kThreads)
         __stcs(out + v, w);
       continue;
@@ -432,7 +419,7 @@ __device__ __forceinline__ void fill_tiles(const long long* cum, int k,
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
         while (b < b_hi && cum[b + 1] <= i0 + j) ++b;
-        e[j] = (T)(base + (unsigned)b);
+        e[j] = (T)((T)(base + (unsigned)b) ^ flip);
       }
       uint4 w;
       memcpy(&w, e, sizeof(w));
@@ -463,7 +450,7 @@ __global__ void fill_runs_kernel(const int* __restrict__ hist, int k,
   long long head = 0;
   if (aligned16(out)) {
     head = n / kPer * kPer;
-    fill_tiles<T>(cum, k, n / kPer, base, tile_bytes / 16,
+    fill_tiles<T>(cum, k, n / kPer, base, (T)0, tile_bytes / 16,
                   reinterpret_cast<uint4*>(out));
   }
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -489,8 +476,8 @@ __global__ void fill_runs_packed_kernel(const int* __restrict__ hist, int k,
   long long head = 0;
   if (aligned16(out)) {
     head = nwords / 4 * 4;
-    fill_tiles<uint8_t>(cum, k, nwords / 4, 0u, tile_bytes / 16,
-                        reinterpret_cast<uint4*>(out));
+    fill_tiles<uint8_t>(cum, k, nwords / 4, 0u, (uint8_t)0,
+                        tile_bytes / 16, reinterpret_cast<uint4*>(out));
   }
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -505,6 +492,48 @@ __global__ void fill_runs_packed_kernel(const int* __restrict__ hist, int k,
     }
     out[w] = word;
   }
+}
+
+// K3, second launch.  Replaces the paint phase of
+// pallas_hist.py:_tiny_sort_kernel / tiny_sort16.  The TPU kernel runs its
+// stats phase and its paint phase as one sequential grid; CUDA blocks run
+// concurrently, so the stats come from a finished minmax_hist16_kernel launch
+// on the same stream instead.  Each block rotates the residue histogram by
+// min & 15 into the 16 counts (the true ones whenever max - min < 16, and
+// the same function of the residue histogram as the TPU kernel's
+// otherwise), prefix sums them into 17 int64 boundaries in shared memory and
+// paints with K4's tile-driven core over those 16 buckets:
+// out[i] = (T)(min + bucket) ^ flip.  Bound: writing n * sizeof(T) bytes
+// (K2's launch reads them).  A binary search over the boundaries for every
+// 16-byte vector and a shared-memory compare for every element took 1.45x
+// the write bound on 2-byte keys (an H100 80GB HBM3 at 700 W); the tiles
+// take one splat store a vector wherever a run covers the tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fill16_kernel(const unsigned* __restrict__ stats, long long n, T flip,
+                  int tile_bytes, T* __restrict__ out) {
+  __shared__ long long cum[17];
+  const unsigned mn = stats[0];
+  if (threadIdx.x == 0) {
+    long long c = 0;
+    cum[0] = 0;
+    for (int j = 0; j < 16; ++j) {
+      c += stats[2 + ((mn + (unsigned)j) & 15u)];
+      cum[j + 1] = c;
+    }
+  }
+  __syncthreads();
+  constexpr int kPer = 16 / sizeof(T);
+  long long head = 0;
+  if (aligned16(out)) {
+    head = n / kPer * kPer;
+    fill_tiles<T>(cum, 16, n / kPer, mn, flip, tile_bytes / 16,
+                  reinterpret_cast<uint4*>(out));
+  }
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = head + tid; i < n; i += stride)
+    out[i] = (T)((T)(mn + (unsigned)bucket_of(cum, 16, i)) ^ flip);
 }
 
 // One wave of a persistent grid of `threads`-thread blocks for `items`
@@ -560,6 +589,32 @@ int launch_fill_runs(const int* hist, int k, long long n, unsigned base,
   return (int)cudaGetLastError();
 }
 
+// K2's launch: one memset of the stats, then one wave of blocks, no more
+// than the input has 16-byte vectors for.
+template <typename T>
+int launch_minmax_hist16(const T* x, long long n, T flip, unsigned* stats,
+                         cudaStream_t s) {
+  cudaMemsetAsync(stats, 0, kStatsWords * sizeof(unsigned), s);
+  const long long vecs = (n * (long long)sizeof(T) + 15) / 16;
+  const long long items = (vecs + kStatsThreads - 1) / kStatsThreads;
+  const int grid =
+      wave_grid(minmax_hist16_kernel<T>, kStatsThreads, items, 0);
+  minmax_hist16_kernel<T><<<grid, kStatsThreads, 0, s>>>(x, n, flip, stats);
+  return (int)cudaGetLastError();
+}
+
+// K3's fill: one wave of blocks, no more than there are output tiles.
+template <typename T>
+int launch_fill16(const unsigned* stats, long long n, T flip, int tile_bytes,
+                  T* out, cudaStream_t s) {
+  const long long tiles =
+      (n * (long long)sizeof(T) + tile_bytes - 1) / tile_bytes;
+  const int grid = wave_grid(fill16_kernel<T>, kThreads, tiles, 0);
+  fill16_kernel<T><<<grid, kThreads, 0, s>>>(stats, n, flip, tile_bytes,
+                                             out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -590,42 +645,33 @@ int srs_minmax_hist16(const void* x, int width, long long n, unsigned flip,
                       void* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   unsigned* st = (unsigned*)stats;
-  cudaMemsetAsync(st, 0xFF, sizeof(unsigned), s);
-  cudaMemsetAsync(st + 1, 0, 17 * sizeof(unsigned), s);
-  const int grid = grid_for(n, width);
   switch (width) {
     case 2:
-      minmax_hist16_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
-          (const uint16_t*)x, n, (uint16_t)flip, st);
-      break;
+      return launch_minmax_hist16((const uint16_t*)x, n, (uint16_t)flip, st,
+                                  s);
     case 4:
-      minmax_hist16_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
-          (const uint32_t*)x, n, (uint32_t)flip, st);
-      break;
+      return launch_minmax_hist16((const uint32_t*)x, n, (uint32_t)flip, st,
+                                  s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 int srs_fill16(const void* stats, int width, long long n, unsigned flip,
-               void* out, void* stream) {
+               int tile_bytes, void* out, void* stream) {
+  if (tile_bytes < 16 || tile_bytes % 16) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned* st = (const unsigned*)stats;
-  const int grid = grid_for(n, width);
   switch (width) {
     case 2:
-      fill16_kernel<uint16_t><<<grid, kThreads, 0, s>>>(
-          st, n, (uint16_t)flip, (uint16_t*)out);
-      break;
+      return launch_fill16(st, n, (uint16_t)flip, tile_bytes, (uint16_t*)out,
+                           s);
     case 4:
-      fill16_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
-          st, n, (uint32_t)flip, (uint32_t*)out);
-      break;
+      return launch_fill16(st, n, (uint32_t)flip, tile_bytes, (uint32_t*)out,
+                           s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 int srs_fill_runs(const void* hist, int k, long long n, unsigned base,

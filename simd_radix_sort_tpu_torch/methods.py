@@ -163,17 +163,20 @@ NOT_YET_PORTED = ()
 COUNT_CROSSOVER_N_1BYTE = 1 << 24
 # 2- and 4-byte keys, per key type: the policy rule (per workload, the median
 # over the 8 distributions of count over the best engine <= 1.35) from the
-# larger of the TPU's 2^21 and counting.SMALL_MIN_N (2^22), the engine's
-# own branch gate.  int32 and uint32: medians 1.24-1.26 at 2^22-2^23,
-# 1.08-1.20 above.
-COUNT_MIN_N_ADAPTIVE = 1 << 22
-# int16: medians 1.76, 1.52, 1.45 and 1.37 at 2^22-2^25, 1.28 at 2^26.
-COUNT_MIN_N_ADAPTIVE_2BYTE = 1 << 26
-# uint16: 1.90, 1.40 and 1.41 at 2^22-2^24, 1.28 at 2^25.  One floor for
-# both 2-byte types cannot meet the rule: at 2^25 int16's median is 1.37,
-# and xla on uint16 ZeroOne keys is 2.97x count (above the rule's 2.5), so
-# the TPU policy's one adaptive floor is split by key type.
-COUNT_MIN_N_ADAPTIVE_UINT16 = 1 << 25
+# larger of the TPU's 2^21 and counting.SMALL_MIN_N (2^14), the engine's
+# own branch gate.  The tables of 2^22-2^26 rows were measured again after
+# K2's and K3's redesign.  int32 and uint32: medians 1.26-1.30 at
+# 2^22, 1.07-1.21 above, so the floor is the base, 2^21 (2^22 before the
+# redesign, when SMALL_MIN_N was the base).
+COUNT_MIN_N_ADAPTIVE = 1 << 21
+# int16: medians 1.52 and 1.36 at 2^22-2^23, 1.17-1.27 at 2^24-2^26 (2^26
+# before the redesign).
+COUNT_MIN_N_ADAPTIVE_2BYTE = 1 << 24
+# uint16: 1.52 at 2^22, 1.14-1.33 at 2^23-2^26 (2^25 before the
+# redesign).  One floor for both 2-byte types cannot meet the rule (int16's
+# median is 1.36 at 2^23), so the TPU policy's one adaptive floor is split
+# by key type.
+COUNT_MIN_N_ADAPTIVE_UINT16 = 1 << 23
 
 
 def count_floor(key_dtype) -> int:

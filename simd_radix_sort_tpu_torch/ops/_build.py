@@ -35,7 +35,7 @@ _PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "srs_histogram": (_P, _I, _LL, _U, _I, _P, _P),
     "srs_minmax_hist16": (_P, _I, _LL, _U, _P, _P),
-    "srs_fill16": (_P, _I, _LL, _U, _P, _P),
+    "srs_fill16": (_P, _I, _LL, _U, _I, _P, _P),
     "srs_fill_runs": (_P, _I, _LL, _U, _I, _I, _P, _P),
     "srs_fill_runs_packed": (_P, _I, _LL, _I, _P, _P),
     "srs_partition_count": (_P, _LL, _I, _P, _P),

@@ -35,8 +35,8 @@ from . import cuda_hist
 # Rule: it stays at the limit if the branch beats the fallback at the
 # widest span part g draws, 1023, at every row from SMALL_MIN_N.  It does
 # (bench_out_h100/large_n/gate-<type>-Span1023.dat, NVIDIA H100 80GB HBM3,
-# 700.00 W): branch/fallback 0.31-0.76 at 2^24 rows and 0.16-0.27 at 2^27
-# over int16, uint16, int32 and uint32.
+# 700.00 W, after K2's and K3's redesign): branch/fallback 0.30-0.48 at
+# 2^24 rows and 0.15-0.24 at 2^27 over int16, uint16, int32 and uint32.
 K_MAX_RANGE = 1024
 # Below this size the adaptive path skips from tiny-range straight to the
 # comparison sort; "auto" sends no 2- or 4-byte keys to count below it
@@ -46,15 +46,13 @@ K_MAX_RANGE = 1024
 # columns in turns; NVIDIA H100 80GB HBM3, 700.00 W) shows the branch
 # resolvably slower than the fallback: its median above the fallback's
 # with its fastest round slower than the fallback's slowest (the rounds
-# are in bench_out_h100/logs/campaign-gate-<type>.out).  Below 2^24 a
-# call is host-bound (0.1-0.5 ms whatever the branch) and the two medians
-# trade places within overlapping rounds; the last separated row is int16
-# OneValue at 2^21 (branch 1.07x).  From 2^22 the branch's median is at
-# most 1.06x the fallback's, from 2^24 0.17-0.81x.  The medians alone
-# would give 2^24 (uint16 OneValue at 2^23: 1.02x, rounds 0.475-0.539 ms
-# against 0.476-0.616), which leaves no auto floor for 4-byte keys that
-# meets the policy rule (PERF.md, section 6).  The TPU's value was 2^21.
-SMALL_MIN_N = 1 << 22
+# are in bench_out_h100/logs/campaign-gate-<type>.out).  Since K2's and
+# K3's redesign no row does, so the rule gives the smallest swept size:
+# below 2^24 a call is host-bound and branch/fallback runs 0.33-1.40 with
+# the rounds overlapping wherever the branch's median is the higher; from
+# 2^24 it is 0.15-0.61.  It was 2^22 before the redesign (int16 OneValue
+# at 2^21, 1.07x, rounds apart); the TPU's value was 2^21.
+SMALL_MIN_N = 1 << 14
 # Width of the tiny-range sort's residue histogram.
 K_TINY_RANGE = 16
 

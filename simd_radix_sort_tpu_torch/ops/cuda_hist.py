@@ -29,7 +29,8 @@ LAUNCHES = {"histogram": 0, "minmax_hist16": 0, "tiny_sort16": 0,
 MAX_HIST_K = 1024   # K1 keeps k int32 counters in shared memory
 MAX_FILL_K = 4096   # K4 keeps k + 1 int64 prefix counts in shared memory
 MAX_PACKED_K = 256  # K6 writes one byte per row
-FILL_TILE_BYTES = 8192  # output bytes a K4/K6 block fills at a time
+FILL_TILE_BYTES = 8192  # output bytes a K3/K4/K6 block fills at a time
+STATS_WORDS = 20  # K2's output: min, max, hist_mod[16], two words of its own
 _MAX_N = (1 << 31) - 1  # counts are int32, as in the JAX package
 
 
@@ -130,15 +131,18 @@ def _empty_stats(device):
 
 
 def _minmax_stats(x: torch.Tensor, flip: int) -> torch.Tensor:
-    """Launch K2: (18,) int32 words holding u32 min, max, hist_mod[16]."""
-    stats = torch.empty(18, dtype=torch.int32, device=x.device)
+    """Launch K2: (STATS_WORDS,) int32 words, the first 18 holding u32 min,
+    max, hist_mod[16]."""
+    stats = torch.empty(STATS_WORDS, dtype=torch.int32, device=x.device)
     _launch("minmax_hist16", "srs_minmax_hist16", x.device, x.data_ptr(),
             x.element_size(), x.numel(), flip, stats.data_ptr())
     return stats
 
 
 def _u32(words: torch.Tensor) -> torch.Tensor:
-    return words.to(torch.int64) & 0xFFFFFFFF
+    """int32 words -> their unsigned values as int64, in one operation (a
+    call at the count engine's smaller sizes is bound by its host work)."""
+    return words.view(torch.uint32).to(torch.int64)
 
 
 def minmax_hist16(x: torch.Tensor, flip: int = 0):
@@ -156,7 +160,7 @@ def minmax_hist16(x: torch.Tensor, flip: int = 0):
         return minmax_hist16_plain(x, flip)
     stats = _minmax_stats(x, flip)
     mm = _u32(stats[:2])
-    return mm[0], mm[1], stats[2:]
+    return mm[0], mm[1], stats[2:18]
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +196,8 @@ def tiny_sort16(x: torch.Tensor, flip: int = 0):
     stats = _minmax_stats(x, flip)
     out = torch.empty_like(x)
     _launch("tiny_sort16", "srs_fill16", x.device, stats.data_ptr(),
-            x.element_size(), x.numel(), flip, out.data_ptr())
+            x.element_size(), x.numel(), flip, FILL_TILE_BYTES,
+            out.data_ptr())
     mm = _u32(stats[:2])
     return out, mm[0], mm[1]
 
@@ -301,4 +306,53 @@ def tile_edge_cases(width: int, k_max: int = MAX_FILL_K) -> dict:
            for label, h in cases.items()}
     # positions past sum(hist) repeat the last bucket, over whole tiles
     out["sum below n"] = (np.array([e + 7, 3], np.int32), 3 * e + 5)
+    return out
+
+
+def k23_edge_cases(width: int, big: int = 70_000) -> dict:
+    """label -> (carrier, flip, start): inputs that reach every path of K2
+    and K3 on a `width`-byte carrier (a NumPy int16 or int32 array, read
+    from `start`: 1 puts the first row 2 or 4 bytes past 16-byte
+    alignment), each with flip 0 and with the sign flip.  Rows are
+    u = carrier ^ flip: all-equal vectors and vectors with one differing
+    row; 0 and the width's maximum in the low and the high half of a 32-bit
+    word; the min in the last row; n = 1-17 and ragged tails; a misaligned
+    start; `big` rows of one residue in no all-equal vector (more than a
+    16-bit or a packed per-thread counter holds); ranges of 16 and wider."""
+    mask = (1 << (8 * width)) - 1
+    per = 16 // width
+    rng = np.random.default_rng(100 + width)
+
+    def small(n, lo=0x1230):  # a range below 16
+        return lo + rng.integers(0, 16, n)
+
+    one_off = np.full(per * 64, 0x5A5A)
+    one_off[np.arange(64) * per + np.arange(64) % per] += 3
+    last_min = small(4 * per, 0x7001) + 1
+    last_min[-1] = 0x7001
+    cases = {
+        "all-equal vectors": (np.full(per * 40, 0x3C3C), 0),
+        "one differing row a vector": (one_off, 0),
+        "0 low, max high": (np.tile([0, mask], per * 8), 0),
+        "max low, 0 high": (np.tile([mask, 0], per * 8 + 1), 0),
+        "min in the last row": (last_min, 0),
+        "min in the last row of a ragged tail": (
+            np.append(last_min + 1, 0x7001), 0),
+        "ragged tail": (small(per * 100 + per - 1), 0),
+        "misaligned start": (small(per * 50 + 1), 1),
+        f"{big} rows of one residue": (
+            0x40 + 16 * rng.integers(0, 4, big), 0),
+        "range 16": (small(3000, mask - 15), 0),
+        "full range": (rng.integers(0, mask + 1, 2 * per + 1), 0),
+    }
+    for n in range(1, 18):
+        cases[f"n={n}"] = (small(n), 0)
+    itype = {2: np.int16, 4: np.int32}[width]
+    utype = {2: np.uint16, 4: np.uint32}[width]
+    out = {}
+    for label, (u, start) in cases.items():
+        u = np.asarray(u, np.int64) & mask
+        for name, flip in (("flip 0", 0), ("sign flip", mask // 2 + 1)):
+            carrier = (u ^ flip).astype(utype).view(itype)
+            out[f"{label}, {name}"] = (carrier, flip, start)
     return out

@@ -40,6 +40,7 @@ import pytest
 
 from simd_radix_sort_tpu_torch import methods
 from simd_radix_sort_tpu_torch.ops import counting
+from simd_radix_sort_tpu_torch.workloads import campaign
 
 BENCH_DIR = os.path.join(os.path.dirname(__file__), "..", "bench_out_h100")
 LARGE_N_DIR = os.path.join(BENCH_DIR, "large_n")
@@ -271,9 +272,8 @@ def test_tables_name_the_card():
 PRE_K1_REDESIGN = "3bb2b58"
 
 
-def test_count_tables_measured_after_the_k1_redesign():
-    """Every table the floors read was last written by a call that did
-    not run the parent of K1's redesign."""
+def _last_writers():
+    """{table: the commit of the campaign call that last wrote it}."""
     with open(os.path.join(BENCH_DIR, "CARD.json")) as f:
         calls = json.load(f)["calls"]
     last = {}
@@ -281,10 +281,44 @@ def test_count_tables_measured_after_the_k1_redesign():
         for cmd in call["commands"]:
             for table in cmd["tables"]:
                 last[table] = call["commit"]
+    return last
+
+
+def test_count_tables_measured_after_the_k1_redesign():
+    """Every table the floors read was last written by a call that did
+    not run the parent of K1's redesign."""
+    last = _last_writers()
     read = ([f"large_n/tpe-{s}.dat" for s in ONE_BYTE_SWEEPS]
             + [fname for fname, kdt, pdts, n, *_ in _method_tables()
                if not pdts and np.dtype(kdt).kind in "ui"
                and np.dtype(kdt).itemsize <= 4 and n >= MIN_N])
     stale = [t for t in read
              if not last.get(t) or last[t].startswith(PRE_K1_REDESIGN)]
+    assert not stale, stale
+
+
+# the commits of the campaign's calls that ran K2 and K3 before their
+# redesign (the campaign's calls on f319e24 and its working tree)
+PRE_K23_REDESIGN = (PRE_K1_REDESIGN, "f319e24")
+
+
+def test_2_and_4_byte_tables_measured_after_the_k2_k3_redesign():
+    """Every 2- and 4-byte count call runs K2 and K3 before it picks a
+    branch, so every table of those widths that the floors and the branch
+    gates read was last written by a call that ran the redesigned
+    kernels: the sweeps of parts d and f, the method tables from MIN_N
+    and the gate tables of part g."""
+    last = _last_writers()
+    read = ([f"large_n/tpe-{s}.dat" for s in (
+                "int16-Uniform", "int16-Zero", "uint16-Uniform",
+                "uint16-Zero", "int32-Uniform", "int32-Zero",
+                "int32-ZeroOne")]
+            + [f"large_n/gate-{t}-{shape}.dat" for t in campaign.GATE_TYPES
+               for shape in (*campaign.GATE_SHAPES,
+                             *(f"Span{s}" for s in campaign.GATE_SPANS))]
+            + [fname for fname, kdt, pdts, n, *_ in _method_tables()
+               if not pdts and np.dtype(kdt).kind in "ui"
+               and np.dtype(kdt).itemsize in (2, 4) and n >= MIN_N])
+    stale = [t for t in read
+             if not last.get(t) or last[t].startswith(PRE_K23_REDESIGN)]
     assert not stale, stale

@@ -7,6 +7,8 @@ on the card by chip_smoke.py.  The parameter grids are those of
 tests/test_pallas_hist.py.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import jax
@@ -294,3 +296,40 @@ def test_plain_versions_do_not_count_as_launches():
     cuda_hist.tiny_sort16(v)
     cuda_hist.fill_runs(cuda_hist.histogram(v, 128), 100, 0, torch.int32)
     assert all(c == 0 for c in cuda_hist.LAUNCHES.values())
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_k23(u_bytes: bytes, width: int):
+    """The Pallas K2 and K3 (interpret mode) on rows u zero-extended to
+    uint32; cached, since every case runs with two flips of the same u."""
+    u = np.frombuffer(u_bytes, f"u{width}").astype(np.uint32)
+    mn, mx, hm = pallas_hist.minmax_hist16(jnp.asarray(u), interpret=True)
+    out, tmn, tmx = pallas_hist.tiny_sort16(jnp.asarray(u), interpret=True)
+    return ((int(mn), int(mx), np.asarray(hm)),
+            (np.asarray(out), int(tmn), int(tmx)))
+
+
+@pytest.mark.parametrize("width", [2, 4])
+@pytest.mark.parametrize("case", list(cuda_hist.k23_edge_cases(2)))
+def test_k23_edge_cases_match_pallas(case, width):
+    """K2 and K3 on the inputs that reach every path of their kernels
+    (cuda_hist.k23_edge_cases, which chip_smoke.py also runs on the card):
+    the port's minmax_hist16 and tiny_sort16 equal the Pallas kernels on
+    u = carrier ^ flip zero-extended, exactly; K3's output modulo 2^w, the
+    carrier's width, for the ranges of 16 and more, whose paint may carry
+    past it in the TPU kernel's uint32."""
+    carrier, flip, start = cuda_hist.k23_edge_cases(width)[case]
+    x = _t(carrier)[start:]
+    mask = (1 << (8 * width)) - 1
+    u = (carrier[start:].view(f"u{width}") ^ flip).astype(f"u{width}")
+    (jmn, jmx, jhm), (jout, tmn, tmx) = _pallas_k23(u.tobytes(), width)
+    mn, mx, hm = cuda_hist.minmax_hist16(x, flip)
+    assert (int(mn), int(mx)) == (jmn, jmx) == (int(u.min()), int(u.max()))
+    assert np.array_equal(_np(hm), jhm)
+    out, mn, mx = cuda_hist.tiny_sort16(x, flip)
+    assert out.dtype == x.dtype and out.shape == x.shape
+    assert (int(mn), int(mx)) == (tmn, tmx) == (jmn, jmx)
+    got_u = (_np(out).view(f"u{width}") ^ flip).astype(np.int64)
+    assert np.array_equal(got_u, jout.astype(np.int64) & mask)
+    if jmx - jmn < 16:
+        assert np.array_equal(got_u, np.sort(u))
