@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import common, transforms
+from ..utils import common, profiling, transforms
 from . import cuda_hist
 
 # Bucket budget of the adaptive branch: K1's limit (cuda_hist.MAX_HIST_K).
@@ -77,16 +77,22 @@ def sort_keys(keys: torch.Tensor, ascending: bool = True):
     # carrier of unsigned value v is simply v ^ sign
     sign = 1 << (8 * dtype.itemsize - 1)
     if dtype.itemsize == 1:
-        out = counting_sort_carrier(c, 256, sign)
+        with profiling.span("srs.count.u8"):
+            out = counting_sort_carrier(c, 256, sign)
     else:
-        sorted_c, mn, mx = cuda_hist.tiny_sort16(c, flip=sign)
-        lo, hi = torch.stack((mn, mx)).tolist()  # the one host sync
+        with profiling.span("srs.count.tiny"):
+            sorted_c, mn, mx = cuda_hist.tiny_sort16(c, flip=sign)
+        with profiling.span("srs.count.range"):
+            profiling.count("host_syncs.count.range")
+            lo, hi = torch.stack((mn, mx)).tolist()  # the one host sync
         if hi - lo < K_TINY_RANGE:
             out = sorted_c
         elif n >= SMALL_MIN_N and hi - lo < K_MAX_RANGE:
-            out = counting_sort_carrier(c, K_MAX_RANGE, lo ^ sign)
+            with profiling.span("srs.count.k1024"):
+                out = counting_sort_carrier(c, K_MAX_RANGE, lo ^ sign)
         else:
-            out = torch.sort(c).values
+            with profiling.span("srs.count.fallback"):
+                out = torch.sort(c).values
     return transforms.from_sortable(out, dtype, ascending), ()
 
 

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from ..utils import common
+from ..utils import common, profiling
 from . import _build, cuda_hist
 
 LAUNCHES = {"partition_pass": 0}
@@ -68,31 +68,42 @@ def partition_pass(streams, mask: torch.Tensor, *, block: int = PART_BLOCK):
     """Stable two-way partition of lock-step streams of 4- or 8-byte words
     (any dtype; bits are moved as they are) by a bool mask: all mask=False
     rows first, then all mask=True rows, both sides in input order.
-    `block` is the kernel's tile in rows.  Returns a list of new tensors."""
-    streams = list(streams)
-    _check(streams, mask, block)
-    if not _build.on_cuda(mask):
-        return partition_pass_plain(streams, mask)
-    n = mask.numel()
-    outs = [torch.empty_like(s) for s in streams]
-    if n == 0:
+    `block` is the kernel's tile in rows.  Returns a list of new tensors.
+
+    While a profiler records, adds to `compaction.k5_bytes` the bytes the
+    launches read and write, on a CPU tensor as on the card: the mask's n
+    bytes once per launch (the count launch, and one scatter launch for
+    each 8 streams), and each stream's n words read once and written once.
+    The per-tile counts and their prefix are left out."""
+    with profiling.span("srs.k5"):
+        streams = list(streams)
+        _check(streams, mask, block)
+        n = mask.numel()
+        if profiling.recording():
+            launches = 1 + -(-len(streams) // _MAX_STREAMS)
+            profiling.count("compaction.k5_bytes", n * launches + sum(
+                2 * n * s.element_size() for s in streams))
+        if not _build.on_cuda(mask):
+            return partition_pass_plain(streams, mask)
+        outs = [torch.empty_like(s) for s in streams]
+        if n == 0:
+            return outs
+        tiles = -(-n // block)
+        counts = torch.empty(tiles, dtype=torch.int32, device=mask.device)
+        _build.launch("srs_partition_count", mask.device, mask.data_ptr(), n,
+                      block, counts.data_ptr())
+        left_off = cuda_hist.prefix_counts(counts)
+        for g in range(0, len(streams), _MAX_STREAMS):
+            ins, group = streams[g:g + _MAX_STREAMS], outs[g:g + _MAX_STREAMS]
+            k = len(ins)
+            _build.launch(
+                "srs_partition_scatter", mask.device, mask.data_ptr(), n,
+                block, left_off.data_ptr(), k,
+                (ctypes.c_void_p * k)(*(s.data_ptr() for s in ins)),
+                (ctypes.c_void_p * k)(*(o.data_ptr() for o in group)),
+                (ctypes.c_int * k)(*(s.element_size() for s in ins)))
+        LAUNCHES["partition_pass"] += 1
         return outs
-    tiles = -(-n // block)
-    counts = torch.empty(tiles, dtype=torch.int32, device=mask.device)
-    _build.launch("srs_partition_count", mask.device, mask.data_ptr(), n,
-                  block, counts.data_ptr())
-    left_off = cuda_hist.prefix_counts(counts)
-    for g in range(0, len(streams), _MAX_STREAMS):
-        ins, group = streams[g:g + _MAX_STREAMS], outs[g:g + _MAX_STREAMS]
-        k = len(ins)
-        _build.launch(
-            "srs_partition_scatter", mask.device, mask.data_ptr(), n, block,
-            left_off.data_ptr(), k,
-            (ctypes.c_void_p * k)(*(s.data_ptr() for s in ins)),
-            (ctypes.c_void_p * k)(*(o.data_ptr() for o in group)),
-            (ctypes.c_int * k)(*(s.element_size() for s in ins)))
-    LAUNCHES["partition_pass"] += 1
-    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -104,16 +115,30 @@ def to_words(t: torch.Tensor):
     """A stream of any dtype as the word streams the kernel moves, plus the
     meta `from_words` needs (the dtype).  There is always one contiguous
     word stream: 1- and 2-byte values are zero-extended to int32, 4- and
-    8-byte values are their signed views."""
-    w = t.element_size()
-    s = common.as_signed(t)
-    if w < 4:
-        s = s.to(torch.int32) & ((1 << (8 * w)) - 1)
-    return [s.contiguous()], t.dtype
+    8-byte values are their signed views.
+
+    While a profiler records, adds to `compaction.widen_bytes` what each
+    pass reads and writes: for n values of w < 4 bytes, n*w + 4n to widen
+    and 8n to mask; for a wider stream that is not contiguous, 2*n*w to
+    copy it; else nothing."""
+    with profiling.span("srs.widen"):
+        w, n = t.element_size(), t.numel()
+        s = common.as_signed(t)
+        if w < 4:
+            s = s.to(torch.int32) & ((1 << (8 * w)) - 1)
+            profiling.count("compaction.widen_bytes", n * (w + 12))
+        elif not s.is_contiguous():
+            profiling.count("compaction.widen_bytes", 2 * n * w)
+        return [s.contiguous()], t.dtype
 
 
 def from_words(words, meta) -> torch.Tensor:
-    """Inverse of `to_words`."""
-    (s,) = words
-    w = torch.empty((), dtype=meta).element_size()
-    return s.to(common.SIGNED_BY_WIDTH[w]).view(meta)
+    """Inverse of `to_words`.  While a profiler records, adds to
+    `compaction.widen_bytes` the narrowing's 4n + n*w bytes for n values
+    of w < 4 bytes (a wider stream is a view: nothing)."""
+    with profiling.span("srs.widen"):
+        (s,) = words
+        w = torch.empty((), dtype=meta).element_size()
+        if w < 4:
+            profiling.count("compaction.widen_bytes", s.numel() * (4 + w))
+        return s.to(common.SIGNED_BY_WIDTH[w]).view(meta)

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import common, transforms
+from ..utils import common, profiling, transforms
 from . import filter as filter_ops
 from . import xla_sort
 
@@ -41,13 +41,15 @@ def _segmented_scans(vals, starts: torch.Tensor, ops):
     """Inclusive segmented scans of every value stream in `vals`, each with
     its operator in `ops`, within segments that begin where `starts` is
     True.  All streams share one loop of doubling passes: pass d combines
-    row i with row i - d unless row i has already met its segment start."""
+    row i with row i - d unless row i has already met its segment start.
+    Each read of the flags is a host sync, counted while a profiler
+    records."""
     # two buffers a stream: each pass reads one and writes the other
     out = [v.clone() for v in vals]
     spare = [torch.empty_like(v) for v in vals]
     flag = starts.clone()
     d = 1
-    while out and not bool(flag.all()):
+    while out and not _all_set(flag):
         open_ = ~flag[d:]
         for j, op in enumerate(ops):
             v, w = out[j], spare[j]
@@ -58,6 +60,11 @@ def _segmented_scans(vals, starts: torch.Tensor, ops):
         flag[d:] = flag[d:] | flag[:-d]
         d *= 2
     return out
+
+
+def _all_set(flag: torch.Tensor) -> bool:
+    profiling.count("host_syncs.hashagg.scan")
+    return bool(flag.all())
 
 
 def _mean_int(s: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
@@ -111,6 +118,12 @@ def group_aggregate(keys: torch.Tensor, values, aggs=("sum",),
 
     The JAX signature's `method` argument, which its body never reads, is
     left out."""
+    with profiling.span("srs.hashagg"):
+        return _group_aggregate(keys, values, aggs, presorted, agg_streams,
+                                max_groups)
+
+
+def _group_aggregate(keys, values, aggs, presorted, agg_streams, max_groups):
     single = not isinstance(values, (tuple, list))
     vals = (values,) if single else tuple(values)
     for a in aggs:
@@ -121,7 +134,8 @@ def group_aggregate(keys: torch.Tensor, values, aggs=("sum",),
     n = keys.shape[0]
 
     if not presorted:
-        keys, vals = xla_sort.sort_arrays(keys, vals, ascending=True)
+        with profiling.span("srs.hashagg.sort"):
+            keys, vals = xla_sort.sort_arrays(keys, vals, ascending=True)
 
     u = transforms.to_sortable(keys, True)
     starts = torch.ones(n, dtype=torch.bool, device=keys.device)
@@ -178,8 +192,9 @@ def group_aggregate(keys: torch.Tensor, values, aggs=("sum",),
             slots.append(scan_memo[kind, i])
         plans.append((agg, slots))
 
-    scanned = _segmented_scans([v for _, v, _ in to_scan], starts,
-                               [op for _, _, op in to_scan])
+    with profiling.span("srs.hashagg.scan"):
+        scanned = _segmented_scans([v for _, v, _ in to_scan], starts,
+                                   [op for _, _, op in to_scan])
     for (slot, _, _), s in zip(to_scan, scanned):
         pending[slot] = s
 

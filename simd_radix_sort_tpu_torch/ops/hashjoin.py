@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import transforms
+from ..utils import profiling, transforms
 from . import filter as filter_ops
 from . import xla_sort
 
@@ -42,9 +42,10 @@ def _take(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def build_index(build_keys: torch.Tensor, build_payloads=()):
     """Sort the build side by key; returns (sorted_carriers, sorted_keys,
     sorted_payloads) — the "hash table"."""
-    keys_s, pays_s = xla_sort.sort_arrays(build_keys, tuple(build_payloads),
-                                          ascending=True)
-    u = transforms.to_sortable(keys_s, True).contiguous()
+    with profiling.span("srs.join.build"):
+        keys_s, pays_s = xla_sort.sort_arrays(
+            build_keys, tuple(build_payloads), ascending=True)
+        u = transforms.to_sortable(keys_s, True).contiguous()
     return u, keys_s, pays_s
 
 
@@ -56,15 +57,17 @@ def lookup_join(probe_keys: torch.Tensor, build_keys: torch.Tensor,
     duplicate build keys the first (lowest sorted position) match is
     returned; match_counts (int32) reports how many build rows matched.
     `probe_is_transformed`: the probe keys are already carriers."""
-    u_build, _, pays_s = build_index(build_keys, build_payloads)
-    u_probe = (probe_keys if probe_is_transformed
-               else transforms.to_sortable(probe_keys, True))
-    lo = _searchsorted_side(u_build, u_probe, "left")
-    hi = _searchsorted_side(u_build, u_probe, "right")
-    counts = (hi - lo).to(torch.int32)
-    found = counts > 0
-    safe = lo.clamp(0, max(build_keys.shape[0] - 1, 0))
-    gathered = tuple(_take(p, safe) for p in pays_s)
+    with profiling.span("srs.join"):
+        u_build, _, pays_s = build_index(build_keys, build_payloads)
+        with profiling.span("srs.join.probe"):
+            u_probe = (probe_keys if probe_is_transformed
+                       else transforms.to_sortable(probe_keys, True))
+            lo = _searchsorted_side(u_build, u_probe, "left")
+            hi = _searchsorted_side(u_build, u_probe, "right")
+            counts = (hi - lo).to(torch.int32)
+            found = counts > 0
+            safe = lo.clamp(0, max(build_keys.shape[0] - 1, 0))
+            gathered = tuple(_take(p, safe) for p in pays_s)
     return found, counts, gathered
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils import common, interop, transforms
+from ..utils import common, interop, profiling, transforms
 from . import xla_sort
 
 
@@ -51,20 +51,25 @@ def sort(keys, *payloads, ascending: bool | None = None,
                        else block_threshold)
     digit_bits = cfg.digit_bits if digit_bits is None else digit_bits
 
-    dev = common.resolve_device(device)
-    keys = _stage(keys, dev)
-    payloads = tuple(_stage(p, dev) for p in payloads)
-    if keys.ndim != 1:
-        raise ValueError("keys must be 1-D")
-    for p in payloads:
-        if p.shape != keys.shape:
-            raise ValueError("payload streams must match keys shape")
+    with profiling.span("srs.sort"):
+        dev = common.resolve_device(device)
+        with profiling.span("srs.sort.stage"):
+            keys = _stage(keys, dev)
+            payloads = tuple(_stage(p, dev) for p in payloads)
+        if keys.ndim != 1:
+            raise ValueError("keys must be 1-D")
+        for p in payloads:
+            if p.shape != keys.shape:
+                raise ValueError("payload streams must match keys shape")
 
-    m = methods.resolve(method, keys.dtype, tuple(p.dtype for p in payloads),
-                        keys.shape[0], device=dev)
-    keys_out, payloads_out = m.run(
-        keys, payloads, ascending=ascending, stable=stable,
-        block_threshold=block_threshold, digit_bits=digit_bits)
+        with profiling.span("srs.sort.resolve"):
+            m = methods.resolve(method, keys.dtype,
+                                tuple(p.dtype for p in payloads),
+                                keys.shape[0], device=dev)
+        with profiling.span("srs.engine." + m.name):
+            keys_out, payloads_out = m.run(
+                keys, payloads, ascending=ascending, stable=stable,
+                block_threshold=block_threshold, digit_bits=digit_bits)
     if not payloads:
         return keys_out
     return (keys_out,) + tuple(payloads_out)
@@ -133,31 +138,35 @@ def sort_packed(packed, key_dtype, ascending: bool = True,
     digit_bits = cfg.digit_bits if digit_bits is None else digit_bits
 
     key_dtype = np.dtype(key_dtype)
-    dev = common.resolve_device(device)
-    if not isinstance(packed, torch.Tensor):
-        packed = np.asarray(packed, dtype=np.uint8)
-    packed = _stage(packed, dev)
-    if packed.dtype != torch.uint8 or packed.ndim != 2:
-        raise ValueError("expected an (n, element_size) uint8 matrix")
-    n, esize = packed.shape
-    ksize = key_dtype.itemsize
-    if esize < ksize:
-        raise ValueError("element size smaller than key size")
+    with profiling.span("srs.sort"):
+        dev = common.resolve_device(device)
+        with profiling.span("srs.sort.stage"):
+            if not isinstance(packed, torch.Tensor):
+                packed = np.asarray(packed, dtype=np.uint8)
+            packed = _stage(packed, dev)
+        if packed.dtype != torch.uint8 or packed.ndim != 2:
+            raise ValueError("expected an (n, element_size) uint8 matrix")
+        n, esize = packed.shape
+        ksize = key_dtype.itemsize
+        if esize < ksize:
+            raise ValueError("element size smaller than key size")
 
-    keys = packed[:, :ksize].reshape(-1).view(common.torch_dtype(key_dtype))
-    rest = packed[:, ksize:]
-    kw = dict(ascending=ascending, stable=stable,
-              block_threshold=block_threshold, digit_bits=digit_bits)
-    if esize == ksize:
-        keys_out, _ = methods.resolve(method, key_dtype, (), n,
-                                      device=dev).run(keys, (), **kw)
-    else:
-        rows = torch.arange(n, dtype=torch.int64, device=dev)
-        m = methods.resolve(method, key_dtype, (rows.dtype,), n, device=dev)
-        keys_out, (perm,) = m.run(keys, (rows,), **kw)
-        rest = rest.index_select(0, perm)
-    key_bytes = keys_out.contiguous().view(torch.uint8).reshape(n, ksize)
-    return torch.cat([key_bytes, rest], dim=1)
+        keys = packed[:, :ksize].reshape(-1).view(
+            common.torch_dtype(key_dtype))
+        rest = packed[:, ksize:]
+        kw = dict(ascending=ascending, stable=stable,
+                  block_threshold=block_threshold, digit_bits=digit_bits)
+        pays = () if esize == ksize else (
+            torch.arange(n, dtype=torch.int64, device=dev),)
+        with profiling.span("srs.sort.resolve"):
+            m = methods.resolve(method, key_dtype,
+                                tuple(p.dtype for p in pays), n, device=dev)
+        with profiling.span("srs.engine." + m.name):
+            keys_out, pays_out = m.run(keys, pays, **kw)
+        if pays:
+            rest = rest.index_select(0, pays_out[0])
+        key_bytes = keys_out.contiguous().view(torch.uint8).reshape(n, ksize)
+        return torch.cat([key_bytes, rest], dim=1)
 
 
 def argsort(keys, ascending: bool = True, stable: bool = True, device=None):

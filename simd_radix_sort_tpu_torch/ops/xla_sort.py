@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils import common, transforms
+from ..utils import common, profiling, transforms
 
 
 def gather(p: torch.Tensor, idx: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -29,10 +29,13 @@ def sort_arrays(keys: torch.Tensor, payloads, ascending: bool = True,
     Returns (sorted_keys, tuple_of_sorted_payloads)."""
     c = transforms.to_sortable(keys, ascending)
     if payloads:
-        vals, idx = torch.sort(c, stable=stable)
-        pays = tuple(gather(p, idx) for p in payloads)
+        with profiling.span("srs.xla.sort"):
+            vals, idx = torch.sort(c, stable=stable)
+        with profiling.span("srs.xla.gather"):
+            pays = tuple(gather(p, idx) for p in payloads)
     else:
-        vals, pays = torch.sort(c, stable=stable).values, ()
+        with profiling.span("srs.xla.sort"):
+            vals, pays = torch.sort(c, stable=stable).values, ()
     return transforms.from_sortable(vals, keys.dtype, ascending), pays
 
 

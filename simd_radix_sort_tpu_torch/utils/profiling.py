@@ -6,10 +6,20 @@ only instrumentation is CLOCK_PROCESS_CPUTIME_ID around the sort call
 `torch.profiler` trace (host and, on a card, CUDA kernels) and `measure`
 reports a call's throughput against the H100 roofline.  A time taken on the
 CPU is reported as the CPU's: its roofline fields stay None.
+
+The port traces itself at the boundaries of its layers: `span(name)` marks
+a part of a call and `count(name, k)` adds to a counter, each only while a
+torch profiler is recording (`trace` here, or any `torch.profiler.profile`
+of the caller's).  A span is then a record function of the profiler, an op
+of its host timeline on the clock of the device's events; otherwise it is
+a shared null context and a counter is left alone, so that tracing off
+costs one check of the profiler's state.  Every name is listed in SPANS or
+COUNTER_NAMES.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import os
@@ -21,6 +31,77 @@ from ..models import roofline
 from . import common
 
 TRACE_FILE = "trace.json"  # what `trace` writes into its log_dir
+
+# The port's spans.  Each name starts with "srs." (never "cu", which a
+# trace reader takes for a CUDA runtime call), so that none is a name the
+# benchmark gives its own spans.
+SPANS = (
+    "srs.sort",                    # ops/sort.sort and sort_packed, whole
+    "srs.sort.stage",              # the inputs moved to the device
+    "srs.sort.resolve",            # methods.resolve: the engine picked
+    # the engine's run, named by the method resolved
+    "srs.engine.xla", "srs.engine.radix", "srs.engine.rank",
+    "srs.engine.count", "srs.engine.quick", "srs.engine.quickseq",
+    "srs.engine.torch", "srs.engine.seq", "srs.engine.cpp",
+    "srs.transform",               # utils/transforms to_ and from_sortable
+    "srs.count.u8",                # counting.sort_keys: 1-byte keys
+    "srs.count.tiny",              # 2-, 4-byte keys: the tiny-range sort
+    "srs.count.range",             # its min and max read by the host
+    "srs.count.k1024",             # range < K_MAX_RANGE: K1 and K4
+    "srs.count.fallback",          # wider: the comparison sort
+    "srs.xla.sort",                # xla_sort.sort_arrays: torch.sort
+    "srs.xla.gather",              # its payload gathers
+    "srs.compact",                 # ops/filter.compact, whole
+    "srs.k5",                      # cuda_partition.partition_pass
+    "srs.widen",                   # cuda_partition.to_words, from_words
+    "srs.fill",                    # compact(fill=...): the mask and _fill
+    "srs.hashagg",                 # ops/hashagg.group_aggregate, whole
+    "srs.hashagg.sort",            # its sort by key
+    "srs.hashagg.scan",            # its segmented scans
+    "srs.join",                    # ops/hashjoin.lookup_join, whole
+    "srs.join.build",              # hashjoin.build_index
+    "srs.join.probe",              # lookup_join's searches and gathers
+)
+# The port's counters, in COUNTERS.  host_syncs.*: each time the host
+# waits for a value of the device at that site; compaction.*: bytes read
+# and written, by the rule in the docstring of the function that counts
+# (K5 and the widening count on every path, the radix engine's too).
+COUNTER_NAMES = (
+    "host_syncs.count.range",      # counting.sort_keys's min/max read
+    "host_syncs.hashagg.scan",     # each flag read of a doubling pass
+    "host_syncs.filter.fill",      # each scalar _fill sends to the device
+    "compaction.k5_bytes",         # cuda_partition.partition_pass
+    "compaction.widen_bytes",      # cuda_partition.to_words, from_words
+    "compaction.fill_bytes",       # filter.compact(fill=...)
+)
+COUNTERS: collections.Counter = collections.Counter()
+
+recording = torch.autograd._profiler_enabled  # a profiler is recording
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking one part of a call: a record function of
+    the profiler named `name` while a profiler records, else a shared null
+    context.  It is the profiler's fast record function, which torch's own
+    generated code uses: an op of that name on the host timeline, as
+    `torch.profiler.record_function` records, and nothing on the device's,
+    at a tenth of its cost while recording (1.3 against 10-11 us a span on
+    an H100 machine's host), so that the spans of a short call do not fill
+    the device idle they are read against."""
+    if recording():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add k to COUNTERS[name] while a profiler records."""
+    if recording():
+        COUNTERS[name] += k
+
+
+def reset_counters() -> None:
+    COUNTERS.clear()
 
 
 def elapsed_seconds(device: torch.device, loop) -> float:
@@ -55,7 +136,9 @@ def trace(log_dir: str, device=None):
     """Record a torch.profiler trace of the enclosed block (host activity,
     and CUDA kernels and copies when `device` is a card; None means
     "cuda") and export it as a Chrome trace, log_dir/trace.json (view with
-    chrome://tracing or Perfetto).  Yields the profiler.  Usage:
+    chrome://tracing or Perfetto).  The trace carries the port's `srs.*`
+    spans (SPANS) around the parts of each call, and COUNTERS counts while
+    it records, and only then.  Yields the profiler.  Usage:
 
         with profiling.trace("build/trace"):
             out = srs.sort(keys, pay)

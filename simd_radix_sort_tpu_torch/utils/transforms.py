@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import common
+from . import common, profiling
 
 
 def _masks(nbits: int):
@@ -74,7 +74,9 @@ def sortable_from_bits(bits: torch.Tensor, dtype,
 
 def to_sortable(keys: torch.Tensor, ascending: bool = True) -> torch.Tensor:
     """Map keys to the same-width signed carrier with matching order."""
-    return sortable_from_bits(keys, common.np_dtype(keys.dtype), ascending)
+    with profiling.span("srs.transform"):
+        return sortable_from_bits(keys, common.np_dtype(keys.dtype),
+                                  ascending)
 
 
 def bits_from_sortable(c: torch.Tensor, dtype,
@@ -101,8 +103,9 @@ def bits_from_sortable(c: torch.Tensor, dtype,
 
 def from_sortable(c: torch.Tensor, dtype, ascending: bool = True) -> torch.Tensor:
     """Inverse of `to_sortable`: keys of `dtype` back from their carrier."""
-    return bits_from_sortable(c, dtype, ascending).view(
-        common.torch_dtype(dtype))
+    with profiling.span("srs.transform"):
+        return bits_from_sortable(c, dtype, ascending).view(
+            common.torch_dtype(dtype))
 
 
 def key_operands(keys: torch.Tensor, ascending: bool = True,
