@@ -8,6 +8,9 @@ Phases, each raising on failure:
   2. kernels: each of K1-K6 against its plain PyTorch version on the card,
      exactly (all are integer functions), at the main path's shapes and at
      ragged, misaligned and edge cases; K6 also against K4's uint8 output.
+     K7 (the segmented scans) against its plain version at the tile's
+     edges and the ragged size (k7_holds): exactly for minimum, maximum
+     and integers, float sums to the tests' rtol.
      K4 and K6 also where runs meet their tiles' edges
      (cuda_hist.tile_edge_cases), at the tile the wrappers launch with and
      at a 64-byte tile; K1 also on the inputs that could break its
@@ -34,7 +37,8 @@ Phases, each raising on failure:
      (operator_cases):
        (k)     filter_rows with Q6's predicate: one K5 launch;
        (l)     group_aggregate, Q1's 4 groups, sum/mean/count of three
-               float64 columns, with max_groups=4 and without;
+               float64 columns, with max_groups=4 and without: one K7
+               launch;
        (m)     group_aggregate by l_orderkey (15·10^6 groups);
        (n)     lookup_join, semi_join, inner_join_expand and
                merge_join_indices of lineitem and orders;
@@ -61,7 +65,9 @@ Phases, each raising on failure:
      keys and at S6-S8's draws (k23_shape_timings), each held against its
      plain version there and first on the inputs that reach every path of
      their kernels (k23_edge_holds: cuda_hist.k23_edge_cases, the rows of
-     one residue at --n, at 2 and 4 bytes, K3 also at a 64-byte tile).
+     one residue at --n, at 2 and 4 bytes, K3 also at a 64-byte tile); K7
+     at Q1's shape at SF30 and at 10^6 rows (k7_timings: five float64
+     sums in 4 groups, bit-identical from call to call).
   5. the distributed tier (simd_radix_sort_tpu_torch/parallel/) on P NCCL
      ranks, one card each, P the largest of 1, 2, 4 that the machine has
      (P = 1 runs in this process, P > 1 in spawned ones), each rank making
@@ -155,6 +161,7 @@ REPO = Path(__file__).resolve().parent
 
 HIST_SOURCE = "simd_radix_sort_tpu_torch/csrc/hist_kernels.cu"
 PARTITION_SOURCE = "simd_radix_sort_tpu_torch/csrc/partition_kernels.cu"
+SCAN_SOURCE = "simd_radix_sort_tpu_torch/csrc/scan_kernels.cu"
 # wrapper -> (TPU kernel it replaces, CUDA source)
 TPU_KERNELS = {
     "histogram": ("simd_radix_sort_tpu/ops/pallas_hist.py:39", HIST_SOURCE),
@@ -166,6 +173,9 @@ TPU_KERNELS = {
     "partition_pass": ("simd_radix_sort_tpu/ops/pallas_partition.py:64",
                        PARTITION_SOURCE),
     "fill_runs_packed": ("scripts/u8_attack.py:65", HIST_SOURCE),
+    # no Pallas kernel: the JAX package's jax.lax.associative_scan
+    "segmented_scan": ("none (simd_radix_sort_tpu/ops/hashagg.py:40)",
+                       SCAN_SOURCE),
 }
 # the CUDA functions each wrapper launches, as the profiler names them
 KERNEL_FUNCTIONS = {
@@ -175,6 +185,7 @@ KERNEL_FUNCTIONS = {
     "fill_runs": ("fill_runs_kernel",),
     "partition_pass": ("partition_count_kernel", "partition_scatter_kernel"),
     "fill_runs_packed": ("fill_runs_packed_kernel",),
+    "segmented_scan": ("seg_tiles_kernel", "seg_spine_kernel"),
 }
 # non-tensor-core int32/float32 peak of an H100 SXM (NVIDIA data sheet);
 # every kernel here does a few integer operations per byte, far below it
@@ -716,6 +727,183 @@ def k23_shape_timings(n: int, seed: int, reps: int, dev, hold) -> list:
     return rows
 
 
+# K7, the segmented scans: held at the tile's edges and a ragged size, and
+# timed at Q1's shape at SF30 (its 1.76e8 selected rows, 4 groups, five
+# float64 sums: one launch) and at 10^6 rows
+K7_EDGE_ROWS = (1, 4095, 4096, 4097, 1_000_003)
+K7_EDGE_CASES = (("float64", "sum"), ("float32", "sum"), ("float64", "min"),
+                 ("bfloat16", "max"), ("float16", "min"), ("int64", "max"),
+                 ("int32", "min"), ("int8", "max"))
+K7_RTOL = {"float32": 1e-5, "float64": 1e-12}  # the parity tests' rtol
+Q1_SCAN_ROWS = 176_000_000
+K7_TIMED_ROWS = (Q1_SCAN_ROWS, 1_000_000)
+
+
+def k7_inputs(n: int, streams: int, dtype: str, groups: int, seed: int,
+              dev):
+    """Start flags of `groups` segments (row 0 and groups - 1 seeded rows;
+    every row when groups >= n) and `streams` value streams of `dtype`
+    made on `dev`: floats uniform in [0, 10^(k+1)) for the k-th, as Q1's
+    columns differ in scale, with a NaN, -0.0 and +0.0 planted; integers
+    over their whole range."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if groups >= n:
+        starts = torch.ones(n, dtype=torch.bool, device=dev)
+    else:
+        starts = torch.zeros(n, dtype=torch.bool, device=dev)
+        starts[0] = True
+        starts[torch.randint(0, n, (groups - 1,), generator=g,
+                             device=dev)] = True
+    vals = []
+    for k in range(streams):
+        if dt.is_floating_point:
+            v = (torch.rand(n, generator=g, device=dev) * 10 ** (k + 1)
+                 if dt.itemsize < 8 else
+                 torch.rand(n, generator=g, device=dev, dtype=dt)
+                 * 10 ** (k + 1)).to(dt)
+            if n > 8:
+                v[n // 3:n // 3 + 3] = torch.tensor(
+                    [float("nan"), -0.0, 0.0], device=dev).to(dt)
+        else:
+            info = torch.iinfo(dt)
+            v = torch.randint(info.min, info.max, (n,), generator=g,
+                              device=dev, dtype=torch.int64).to(dt)
+        vals.append(v)
+    return starts, vals
+
+
+def k7_hold(got, want, vals, starts, ops, what: str) -> None:
+    """K7's outputs against its plain version's: integers, minimum and
+    maximum exactly (NaN where NaN); float32 and float64 sums within the
+    tests' rtol of the segment's running sum of magnitudes; 2-byte float
+    sums exactly (on values whose partial sums are exact in any order).
+    Row 0 must start a segment."""
+    import torch
+
+    seg = torch.cumsum(starts.to(torch.int64), 0) - 1
+    first = torch.nonzero(starts).flatten()
+    for q, (a, b, v, op) in enumerate(zip(got, want, vals, ops)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"K7 {what} stream {q}: {a.dtype} "
+                                 f"{tuple(a.shape)}, plain {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if not a.dtype.is_floating_point:
+            same = torch.equal(a, b)
+        else:
+            x, y = a.to(torch.float64), b.to(torch.float64)
+            same = torch.equal(x.isnan(), y.isnan())
+            ok = ~y.isnan()
+            if op != "sum" or a.dtype.itemsize == 2:
+                same = same and torch.equal(x[ok], y[ok])
+            else:
+                inf = ok & y.isinf()
+                fin = ok & ~inf
+                m = torch.nan_to_num(v.to(torch.float64).abs(), nan=0.0,
+                                     posinf=0.0)
+                c = torch.cumsum(m, 0)
+                run = c - (c - m)[first][seg.clamp_min(0)]
+                rtol = K7_RTOL[str(a.dtype).split(".")[1]]
+                same = same and torch.equal(x[inf], y[inf]) and bool(
+                    ((x - y).abs()[fin] <= rtol * run[fin]).all())
+        if not same:
+            raise AssertionError(f"K7 {what} stream {q} ({a.dtype} {op}): "
+                                 "kernel differs from its plain version")
+
+
+def k7_holds(seed: int, dev) -> int:
+    """K7 against its plain version at K7_EDGE_ROWS, with one segment,
+    segments of ~100 rows and every row its own, for each of
+    K7_EDGE_CASES; then each case in one call of two streams (a launch
+    each).  Returns the number of comparisons."""
+    from simd_radix_sort_tpu_torch.ops import cuda_scan as cs
+
+    count = 0
+    for n in K7_EDGE_ROWS:
+        for groups in (1, n // 100 + 1, n):
+            for dtype, op in K7_EDGE_CASES:
+                starts, vals = k7_inputs(n, 2, dtype, groups,
+                                         seed + n + groups, dev)
+                ops = [op, op]
+                k7_hold(cs.segmented_scans(vals, starts, ops),
+                        cs.segmented_scans_plain(vals, starts, ops), vals,
+                        starts, ops, f"{dtype} {op} n={n} groups={groups}")
+                count += 1
+    return count
+
+
+def k7_timings(seed: int, reps: int, dev, chip) -> list:
+    """K7 at K7_TIMED_ROWS: five float64 sums in 4 groups, Q1's scan.  The
+    wrapper's ms (CUDA events), the kernels' device ms (event_device_ms of
+    wrapper calls: they run nothing else on the card) and by function
+    (profiler), the plain version's ms, torch.cumsum's over the same
+    streams (unsegmented: a yardstick), and the bound: the flags read once
+    and each stream read once and written once, 81 bytes a row.  Each
+    shape is held against the plain version and two calls must give the
+    same bits."""
+    import torch
+
+    from simd_radix_sort_tpu_torch.models import roofline
+    from simd_radix_sort_tpu_torch.ops import cuda_scan as cs
+
+    rows = []
+    ops = ["sum"] * 5
+    for n in K7_TIMED_ROWS:
+        starts, vals = k7_inputs(n, 5, "float64", 4, seed, dev)
+        cs.reset_launches()
+        got = cs.segmented_scans(vals, starts, ops)
+        again = cs.segmented_scans(vals, starts, ops)
+        if cs.LAUNCHES["segmented_scan"] != 2:
+            raise AssertionError(f"K7 n={n}: {cs.LAUNCHES}, not one launch "
+                                 "a call")
+        for a, b in zip(got, again):
+            if not torch.equal(a.view(torch.int64), b.view(torch.int64)):
+                raise AssertionError(f"K7 n={n}: two calls differ")
+        del again
+        for q in range(5):
+            want = cs.segmented_scans_plain([vals[q]], starts, ["sum"])
+            k7_hold([got[q]], want, [vals[q]], starts, ["sum"],
+                    f"Q1 shape n={n} stream {q}")
+            del want
+        del got
+
+        def kern():
+            return cs.segmented_scans(vals, starts, ops)
+
+        def plain():
+            return cs.segmented_scans_plain(vals, starts, ops)
+
+        def lib():
+            return [torch.cumsum(v, 0) for v in vals]
+
+        p1, k1 = time_calls(plain, reps), time_calls(kern, reps)
+        k2, p2 = time_calls(kern, reps), time_calls(plain, reps)
+        runs = [event_device_ms([kern]) for _ in range(3)]
+        _, per = profile_call(kern, ("segmented_scan",))
+        nbytes = n * (1 + 5 * 16)
+        bound = roofline.bound_ms(nbytes, chip)
+        row = {"name": "segmented_scan",
+               "shape": f"5 x float64 sums, 4 groups, n={n}",
+               "n": n, "ms": min(k1, k2), "ms_runs": [k1, k2],
+               "device_ms": statistics.median(runs), "device_ms_runs": runs,
+               "device_ms_from": "events",
+               "device_ms_profiler": sum(per.values()) if per else None,
+               "device_ms_by_function": {k[:80]: v for k, v in per.items()},
+               "plain_ms": min(p1, p2), "plain_ms_runs": [p1, p2],
+               "library_ms": time_calls(lib, reps),
+               "library_call": "torch.cumsum per stream (unsegmented)",
+               "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+               "k7_bytes": cs.k7_bytes(n, 5, 8),
+               "device_over_bound": statistics.median(runs) / bound}
+        rows.append(row)
+        log(f"phase 4: K7 {json.dumps(row)}")
+        del starts, vals
+    return rows
+
+
 # rows of case (p), at most: the most rows the blocked cleanup gets
 QUICK_MAX_N = 100_000_000
 
@@ -857,15 +1045,16 @@ def operator_cases(t, quick_n: int):
             lambda t, kw=kw: hashagg.group_aggregate(
                 t["l_rfls"], tuple(t[c] for c in q1_cols), aggs=q1_aggs,
                 **kw),
-            group_gate("(l)", "l_rfls", q1_cols, q1_aggs), ["partition_pass"],
-            1, 28, group_canon(q1_aggs)))
+            group_gate("(l)", "l_rfls", q1_cols, q1_aggs),
+            ["partition_pass", "segmented_scan"], 1, 28,
+            group_canon(q1_aggs)))
     m_cols, m_aggs = ("l_extendedprice",), ("sum", "count")
     cases.append((
         "m group_aggregate by l_orderkey", "hashagg", "l_orderkey",
         lambda t: hashagg.group_aggregate(
             t["l_orderkey"], (t["l_extendedprice"],), aggs=m_aggs),
-        group_gate("(m)", "l_orderkey", m_cols, m_aggs), ["partition_pass"],
-        1, 16, group_canon(m_aggs)))
+        group_gate("(m)", "l_orderkey", m_cols, m_aggs),
+        ["partition_pass", "segmented_scan"], 1, 16, group_canon(m_aggs)))
 
     # (n) joins of lineitem and orders
     def gate_lookup(t, out):
@@ -1305,6 +1494,7 @@ def distributed_phase(rank: int, world: int, port: int, n: int, seed: int,
 
     from simd_radix_sort_tpu_torch.ops import cuda_hist as ch
     from simd_radix_sort_tpu_torch.ops import cuda_partition as cp
+    from simd_radix_sort_tpu_torch.ops import cuda_scan as cs
     from simd_radix_sort_tpu_torch.parallel import dist_sort as ds
     from simd_radix_sort_tpu_torch.utils import data as D, interop
 
@@ -1330,10 +1520,11 @@ def distributed_phase(rank: int, world: int, port: int, n: int, seed: int,
                 tables, world, None, dev):
             ch.reset_launches()
             cp.reset_launches()
+            cs.reset_launches()
             ds.reset_host_reads()
             out = run()
             torch.cuda.synchronize()
-            launches = {**ch.LAUNCHES, **cp.LAUNCHES}
+            launches = {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES}
             host_reads = ds.HOST_READS["split_sizes"]
             gate(out)
             del out
@@ -1753,6 +1944,7 @@ def workloads_phase(n: int, seed: int, reps: int, world: int, dev,
     from simd_radix_sort_tpu_torch.ops import _build
     from simd_radix_sort_tpu_torch.ops import cuda_hist as ch
     from simd_radix_sort_tpu_torch.ops import cuda_partition as cp
+    from simd_radix_sort_tpu_torch.ops import cuda_scan as cs
     from simd_radix_sort_tpu_torch.workloads import (
         combined_1e8, common, config5_scale, headline, pipeline_1e9)
 
@@ -1774,9 +1966,10 @@ def workloads_phase(n: int, seed: int, reps: int, world: int, dev,
         one call profiled.  `note(out)` adds what the output says."""
         ch.reset_launches()
         cp.reset_launches()
+        cs.reset_launches()
         out = call()
         common.fence(dev)
-        launches = {**ch.LAUNCHES, **cp.LAUNCHES}
+        launches = {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES}
         gate(out)
         if note is not None:
             extra.update(note(out))
@@ -1959,6 +2152,7 @@ def drivers_phase(dev, sizes=DRIVER_SIZES) -> dict:
     from simd_radix_sort_tpu_torch.ops import _build
     from simd_radix_sort_tpu_torch.ops import cuda_hist as ch
     from simd_radix_sort_tpu_torch.ops import cuda_partition as cp
+    from simd_radix_sort_tpu_torch.ops import cuda_scan as cs
     from simd_radix_sort_tpu_torch.workloads import (
         knob_epoch, perf_suite, remeasure_noise, run_test_matrix)
 
@@ -1980,12 +2174,13 @@ def drivers_phase(dev, sizes=DRIVER_SIZES) -> dict:
             perf.OUT_DIR = str(d)
             ch.reset_launches()
             cp.reset_launches()
+            cs.reset_launches()
             t0 = time.perf_counter()
             with open(d / "stdout.log", "w") as f, \
                     contextlib.redirect_stdout(f):
                 rc = driver.main(argv + on)
             seconds = time.perf_counter() - t0
-            launches = {**ch.LAUNCHES, **cp.LAUNCHES}
+            launches = {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES}
             lines = (d / "stdout.log").read_text().splitlines()
             if rc != 0:
                 raise AssertionError(f"phase 8: {label} {argv} exited {rc}: "
@@ -2075,14 +2270,16 @@ def entry_phase(reps: int, dev) -> dict:
     from simd_radix_sort_tpu_torch import entry as E
     from simd_radix_sort_tpu_torch.ops import cuda_hist as ch
     from simd_radix_sort_tpu_torch.ops import cuda_partition as cp
+    from simd_radix_sort_tpu_torch.ops import cuda_scan as cs
     from simd_radix_sort_tpu_torch.utils import interop
 
     step, args = E.entry(dev)
     ch.reset_launches()
     cp.reset_launches()
+    cs.reset_launches()
     keys, pay = step(*args)
     torch.cuda.synchronize()
-    launches = {**ch.LAUNCHES, **cp.LAUNCHES}
+    launches = {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES}
     cpu_step, cpu_args = E.entry("cpu")
     cpu_keys, cpu_pay = (interop.to_numpy(t) for t in cpu_step(*cpu_args))
     keys, pay = interop.to_numpy(keys), interop.to_numpy(pay)
@@ -2232,7 +2429,8 @@ def main() -> int:
     from simd_radix_sort_tpu_torch import methods
     from simd_radix_sort_tpu_torch.models import roofline
     from simd_radix_sort_tpu_torch.ops import (_build, cuda_hist as ch,
-                                               cuda_partition as cp, radix)
+                                               cuda_partition as cp,
+                                               cuda_scan as cs, radix)
     from simd_radix_sort_tpu_torch.utils import (data as D, interop, native,
                                                  transforms)
 
@@ -2443,6 +2641,7 @@ def main() -> int:
         hold("fill_runs_packed", (got,),
              (ch.fill_runs(hist, size, 0, torch.uint8),),
              f"{shape} n={size} against K4")
+    checks["segmented_scan"] += k7_holds(args.seed, dev)
     torch.cuda.synchronize()
     log(f"phase 2: kernels equal their plain versions "
         f"({json.dumps(checks)} comparisons) in "
@@ -2457,9 +2656,10 @@ def main() -> int:
     def count_launches(fn):
         ch.reset_launches()
         cp.reset_launches()
+        cs.reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        return out, {**ch.LAUNCHES, **cp.LAUNCHES}
+        return out, {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES}
 
     def as_tuple(out):
         if isinstance(out, torch.Tensor):
@@ -2900,6 +3100,7 @@ def main() -> int:
     # eight distributions and S6-S8, int32 and int16
     k1_rows = k1_shape_timings(n, args.seed, args.reps, dev, hold)
     k23_rows = k23_shape_timings(n, args.seed, args.reps, dev, hold)
+    timings.extend(k7_timings(args.seed, args.reps, dev, chip))
 
     # K4 and K6 at tiles of 4-64 KiB, past the wrappers: the kernel's
     # device time from events around launches queued while the card spins,
@@ -2956,10 +3157,11 @@ def main() -> int:
     t0 = time.perf_counter()
     ch.reset_launches()
     cp.reset_launches()
+    cs.reset_launches()
     case_a = next(r for r in results if r["case"].startswith("a "))
     measurement = measurement_phase(n, args.seed, args.reps, case_a["ms"],
                                     dev)
-    measurement["launches"] = {**ch.LAUNCHES, **cp.LAUNCHES}
+    measurement["launches"] = {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES}
     for name, count in measurement["launches"].items():
         main_launches[name] += count
     measurement["seconds"] = time.perf_counter() - t0
@@ -3008,9 +3210,10 @@ def main() -> int:
     t0 = time.perf_counter()
     ch.reset_launches()
     cp.reset_launches()
+    cs.reset_launches()
     floors = floors_phase(args.seed, args.reps, dev)
     torch.cuda.synchronize()
-    floors["launches"] = {**ch.LAUNCHES, **cp.LAUNCHES}
+    floors["launches"] = {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES}
     for name, count in floors["launches"].items():
         main_launches[name] += count
     floors["seconds"] = time.perf_counter() - t0

@@ -23,7 +23,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "hist_kernels.cu",
-           _PKG / "csrc" / "partition_kernels.cu")
+           _PKG / "csrc" / "partition_kernels.cu",
+           _PKG / "csrc" / "scan_kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "srs_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "srs_fill_runs_packed": (_P, _I, _LL, _I, _P, _P),
     "srs_partition_count": (_P, _LL, _I, _P, _P),
     "srs_partition_scatter": (_P, _LL, _I, _P, _I, _PP, _PP, _PI, _P),
+    "srs_segmented_scan": (_P, _LL, _I, _I, _I, _PP, _PP, _P, _P, _P),
 }
 
 

@@ -14,12 +14,15 @@ each group with scans read at its last row:
 then one stable compaction (ops/filter.py: one K5 launch, however many
 streams) packs the group keys and every per-row scan at the group ends.
 
-torch has no associative scan, so the segmented scan is written out as
-Hillis-Steele doubling over (start flag, value) pairs with the JAX
-package's combiner.  It stops once every row has reached its group's start:
-ceil(log2(longest group)) passes, one host read of the flags per pass.  Its
-rounding tree differs from `jax.lax.associative_scan`'s, so float sums
-agree with the JAX package to rounding, not bit for bit.
+torch has no associative scan.  On the card the segmented scans are one
+hand-written kernel, K7 (ops/cuda_scan.py): reduce-then-scan over tiles of
+4096 rows, streams of one dtype and op in one launch, no host sync.  It is
+bound by bytes and moves 3 * w + 2 / k bytes a row and stream (k streams
+of w bytes), against the 2 * w + 1 / k the scan must move.  On the CPU the
+scans are Hillis-Steele doubling over (start flag, value) pairs with the
+JAX package's combiner, ceil(log2 n) passes.  Neither adds in
+`jax.lax.associative_scan`'s order, so float sums agree with the JAX
+package to rounding, not bit for bit.
 
 Returns padded results + num_groups, the JAX package's layout.
 """
@@ -29,43 +32,11 @@ from __future__ import annotations
 import torch
 
 from ..utils import common, profiling, transforms
+from . import cuda_scan
 from . import filter as filter_ops
 from . import xla_sort
 
 AGGS = ("sum", "count", "min", "max", "mean")
-
-_SCAN_OPS = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
-
-
-def _segmented_scans(vals, starts: torch.Tensor, ops):
-    """Inclusive segmented scans of every value stream in `vals`, each with
-    its operator in `ops`, within segments that begin where `starts` is
-    True.  All streams share one loop of doubling passes: pass d combines
-    row i with row i - d unless row i has already met its segment start.
-    Each read of the flags is a host sync, counted while a profiler
-    records."""
-    # two buffers a stream: each pass reads one and writes the other
-    out = [v.clone() for v in vals]
-    spare = [torch.empty_like(v) for v in vals]
-    flag = starts.clone()
-    d = 1
-    while out and not _all_set(flag):
-        open_ = ~flag[d:]
-        for j, op in enumerate(ops):
-            v, w = out[j], spare[j]
-            w[:d] = v[:d]
-            op(v[:-d], v[d:], out=w[d:])
-            torch.where(open_, w[d:], v[d:], out=w[d:])
-            out[j], spare[j] = w, v
-        flag[d:] = flag[d:] | flag[:-d]
-        d *= 2
-    return out
-
-
-def _all_set(flag: torch.Tensor) -> bool:
-    profiling.count("host_syncs.hashagg.scan")
-    return bool(flag.all())
-
 
 def _mean_int(s: torch.Tensor, cnt: torch.Tensor) -> torch.Tensor:
     """s // cnt for an integer dtype as the JAX package computes it
@@ -187,14 +158,15 @@ def _group_aggregate(keys, values, aggs, presorted, agg_streams, max_groups):
                         finish = (lambda a, dt=dt:
                                   transforms.from_sortable(a, dt))
                     slot = register(None)
-                    to_scan.append((slot, v, _SCAN_OPS[kind]))
+                    to_scan.append((slot, v, kind))
                 scan_memo[kind, i] = (slot, finish)
             slots.append(scan_memo[kind, i])
         plans.append((agg, slots))
 
     with profiling.span("srs.hashagg.scan"):
-        scanned = _segmented_scans([v for _, v, _ in to_scan], starts,
-                                   [op for _, _, op in to_scan])
+        scanned = cuda_scan.segmented_scans([v for _, v, _ in to_scan],
+                                            starts,
+                                            [op for _, _, op in to_scan])
     for (slot, _, _), s in zip(to_scan, scanned):
         pending[slot] = s
 

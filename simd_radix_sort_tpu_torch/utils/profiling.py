@@ -65,14 +65,16 @@ SPANS = (
 # The port's counters, in COUNTERS.  host_syncs.*: each time the host
 # waits for a value of the device at that site; compaction.*: bytes read
 # and written, by the rule in the docstring of the function that counts
-# (K5 and the widening count on every path, the radix engine's too).
+# (K5 and the widening count on every path, the radix engine's too);
+# hashagg.scan.*: K7's launches on the card and their bytes.
 COUNTER_NAMES = (
     "host_syncs.count.range",      # counting.sort_keys's min/max read
-    "host_syncs.hashagg.scan",     # each flag read of a doubling pass
     "host_syncs.filter.fill",      # each scalar _fill sends to the device
     "compaction.k5_bytes",         # cuda_partition.partition_pass
     "compaction.widen_bytes",      # cuda_partition.to_words, from_words
     "compaction.fill_bytes",       # filter.compact(fill=...)
+    "hashagg.scan.k7_launches",    # cuda_scan.segmented_scans on the card
+    "hashagg.scan.k7_bytes",       # the same launches' k7_bytes
 )
 COUNTERS: collections.Counter = collections.Counter()
 

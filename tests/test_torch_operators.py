@@ -9,10 +9,10 @@ port runs on CPU tensors, where every compaction runs K5's plain version
 Tolerances: keys, indices, counts, integer aggregates and min/max are
 compared exactly (bytes, or values with NaN equal to NaN).  Float sums and
 means add in another order in the two packages (the JAX package's
-associative-scan tree, the port's doubling scan), so they are held to
-rtol = 1e-5 for float32 (and float16 inputs, summed in float32) and
-rtol = 1e-12 for float64, relative to the group's sum of magnitudes, the
-scale of either order's rounding error.
+associative-scan tree, the port's doubling scan on the CPU), so they are
+held to rtol = 1e-5 for float32 (and float16 inputs, summed in float32)
+and rtol = 1e-12 for float64, relative to the group's sum of magnitudes,
+the scale of either order's rounding error.
 """
 
 import functools
@@ -26,7 +26,7 @@ import torch
 from simd_radix_sort_tpu.ops import filter as jfilter
 from simd_radix_sort_tpu.ops import hashagg as jhashagg
 from simd_radix_sort_tpu.utils import transforms as jtransforms
-from simd_radix_sort_tpu_torch.ops import cuda_partition
+from simd_radix_sort_tpu_torch.ops import cuda_partition, cuda_scan
 from simd_radix_sort_tpu_torch.ops import filter as tfilter
 from simd_radix_sort_tpu_torch.ops import hashagg as thashagg
 from simd_radix_sort_tpu_torch.utils import interop
@@ -293,10 +293,9 @@ def test_group_aggregate_single_group_and_empty():
 def test_segmented_scans_stop_at_the_longest_group():
     starts = torch.tensor([True, False, False, True, False, True, True])
     vals = torch.tensor([1., 2., 3., 4., 5., 6., 7.])
-    (s,) = thashagg._segmented_scans([vals], starts, [torch.add])
+    (s,) = cuda_scan.segmented_scans([vals], starts, ["sum"])
     assert s.tolist() == [1., 3., 6., 4., 9., 6., 7.]
     ints = torch.tensor([5, 1, 7, 2, 0, 3, 3])
-    mn, mx = thashagg._segmented_scans([ints, ints], starts,
-                                       [torch.minimum, torch.maximum])
+    mn, mx = cuda_scan.segmented_scans([ints, ints], starts, ["min", "max"])
     assert mn.tolist() == [5, 1, 1, 2, 0, 3, 3]
     assert mx.tolist() == [5, 5, 7, 2, 2, 3, 3]

@@ -88,7 +88,8 @@ def test_missing_nvcc_raises(monkeypatch):
 
 def test_kernel_sources_and_build_flags():
     assert [s.name for s in _build.SOURCES] == ["hist_kernels.cu",
-                                                 "partition_kernels.cu"]
+                                                 "partition_kernels.cu",
+                                                 "scan_kernels.cu"]
     assert all(src.is_file() for src in _build.SOURCES)
     text = "".join(src.read_text() for src in _build.SOURCES)
     for entry in _build._SIGNATURES:

@@ -4,7 +4,6 @@ the listed names, each inside its parent, and counts that match a hand
 count; and the benchmark's readers of them on synthetic traces."""
 
 import collections
-import math
 
 import pytest
 import torch
@@ -135,9 +134,11 @@ def test_scan_counts_one_flag_read_a_pass_and_the_last(longest):
         ng, _, ((sums,),) = hashagg.group_aggregate(keys, vals,
                                                     aggs=("sum",))
     assert sums[:int(ng)].tolist() == sizes
-    # ceil(log2(longest)) doubling passes, then the read that ends them
-    passes = math.ceil(math.log2(longest))
-    assert profiling.COUNTERS["host_syncs.hashagg.scan"] == passes + 1
+    # the scan reads no flag back, whatever the longest group: the CPU's
+    # doubling runs ceil(log2 n) passes and K7 (on the card alone, so not
+    # counted here) none at all
+    assert not any(k.startswith(("host_syncs.hashagg", "hashagg.scan"))
+                   for k in profiling.COUNTERS)
 
 
 def test_compaction_bytes_by_hand():
