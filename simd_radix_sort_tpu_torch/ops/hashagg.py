@@ -170,11 +170,12 @@ def _group_aggregate(keys, values, aggs, presorted, agg_streams, max_groups):
     for (slot, _, _), s in zip(to_scan, scanned):
         pending[slot] = s
 
-    if max_groups is not None:
-        packed = filter_ops.compact_bounded(ends, *pending,
-                                            max_out=max_groups)
-    else:
-        packed = filter_ops.compact(ends, *pending)
+    with profiling.span("srs.hashagg.compact"):
+        if max_groups is not None:
+            packed = filter_ops.compact_bounded(ends, *pending,
+                                                max_out=max_groups)
+        else:
+            packed = filter_ops.compact(ends, *pending)
     num_groups, group_keys = packed[0], packed[1]
     at_ends = packed[1:]
 

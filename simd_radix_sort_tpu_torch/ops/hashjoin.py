@@ -219,6 +219,7 @@ def semi_join(probe_keys, probe_payloads, build_keys, anti: bool = False):
     appear in the build table: lookup + stable compaction (K5).
 
     Returns (count, probe_keys_packed, probe_payloads_packed...)."""
-    found, _, _ = lookup_join(probe_keys, build_keys)
-    mask = ~found if anti else found
-    return filter_ops.compact(mask, probe_keys, *probe_payloads)
+    with profiling.span("srs.join.semi"):
+        found, _, _ = lookup_join(probe_keys, build_keys)
+        mask = ~found if anti else found
+        return filter_ops.compact(mask, probe_keys, *probe_payloads)

@@ -194,22 +194,24 @@ def sort_multi(keys_columns, *payloads, ascending=True, stable: bool = False,
     if len(ascending) != len(keys_columns):
         raise ValueError("one ascending flag per key column")
 
-    dev = common.resolve_device(device)
-    cols = [_stage(k, dev) for k in keys_columns]
-    pays = [_stage(p, dev) for p in payloads]
-    n = cols[0].shape[0]
-    if any(t.ndim != 1 or t.shape[0] != n for t in cols + pays):
-        raise ValueError("key columns and payloads must be 1-D of one length")
+    with profiling.span("srs.sort_multi"):
+        dev = common.resolve_device(device)
+        cols = [_stage(k, dev) for k in keys_columns]
+        pays = [_stage(p, dev) for p in payloads]
+        n = cols[0].shape[0]
+        if any(t.ndim != 1 or t.shape[0] != n for t in cols + pays):
+            raise ValueError(
+                "key columns and payloads must be 1-D of one length")
 
-    perm = None
-    for col, up in zip(reversed(cols), reversed(ascending)):
-        c = transforms.to_sortable(col, up)
-        if perm is not None:
-            c = c.index_select(0, perm)
-        order = torch.argsort(c, stable=True)
-        perm = order if perm is None else perm.index_select(0, order)
-    return (tuple(xla_sort.gather(col, perm) for col in cols),
-            tuple(xla_sort.gather(p, perm) for p in pays))
+        perm = None
+        for col, up in zip(reversed(cols), reversed(ascending)):
+            c = transforms.to_sortable(col, up)
+            if perm is not None:
+                c = c.index_select(0, perm)
+            order = torch.argsort(c, stable=True)
+            perm = order if perm is None else perm.index_select(0, order)
+        return (tuple(xla_sort.gather(col, perm) for col in cols),
+                tuple(xla_sort.gather(p, perm) for p in pays))
 
 
 def sort_batched(keys, *payloads, ascending: bool = True,

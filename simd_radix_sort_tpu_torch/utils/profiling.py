@@ -58,9 +58,12 @@ SPANS = (
     "srs.hashagg",                 # ops/hashagg.group_aggregate, whole
     "srs.hashagg.sort",            # its sort by key
     "srs.hashagg.scan",            # its segmented scans
+    "srs.hashagg.compact",         # its compaction at the group ends
     "srs.join",                    # ops/hashjoin.lookup_join, whole
     "srs.join.build",              # hashjoin.build_index
     "srs.join.probe",              # lookup_join's searches and gathers
+    "srs.join.semi",               # hashjoin.semi_join, whole
+    "srs.sort_multi",              # ops/sort.sort_multi, whole
 )
 # The port's counters, in COUNTERS.  host_syncs.*: each time the host
 # waits for a value of the device at that site; compaction.*: bytes read

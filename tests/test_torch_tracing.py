@@ -20,7 +20,7 @@ from simd_radix_sort_tpu_torch.utils import profiling
 # the spans each span must lie inside, in the calls below; None: top level
 PARENTS = {
     "srs.sort": None, "srs.compact": None, "srs.hashagg": None,
-    "srs.join": None,
+    "srs.join": None, "srs.join.semi": None, "srs.sort_multi": None,
     "srs.sort.stage": ("srs.sort",), "srs.sort.resolve": ("srs.sort",),
     "srs.engine.count": ("srs.sort",), "srs.engine.xla": ("srs.sort",),
     "srs.count.u8": ("srs.engine.count",),
@@ -29,13 +29,14 @@ PARENTS = {
     "srs.count.k1024": ("srs.engine.count",),
     "srs.count.fallback": ("srs.engine.count",),
     "srs.transform": ("srs.engine.count", "srs.engine.xla", "srs.hashagg",
-                      "srs.join.build", "srs.join.probe"),
+                      "srs.join.build", "srs.join.probe", "srs.sort_multi"),
     "srs.xla.sort": ("srs.engine.xla", "srs.hashagg.sort", "srs.join.build"),
     "srs.xla.gather": ("srs.engine.xla", "srs.hashagg.sort",
                        "srs.join.build"),
     "srs.k5": ("srs.compact",), "srs.widen": ("srs.compact",),
     "srs.fill": ("srs.compact",),
     "srs.hashagg.sort": ("srs.hashagg",), "srs.hashagg.scan": ("srs.hashagg",),
+    "srs.hashagg.compact": ("srs.hashagg",),
     "srs.join.build": ("srs.join",), "srs.join.probe": ("srs.join",),
 }
 
@@ -49,7 +50,8 @@ def fresh_counters():
 
 def calls_of_every_layer():
     """A sort through count (each branch), one through xla, a filter, a
-    group-aggregate with a float sum and a lookup join, on the CPU."""
+    group-aggregate with a float sum, a lookup join, a semi-join and a
+    multi-column sort, on the CPU."""
     g = torch.Generator().manual_seed(7)
     n = 1 << 14  # counting.SMALL_MIN_N: the 1024-bucket branch opens
     tsrs.sort(torch.randint(0, 256, (n,), generator=g, dtype=torch.uint8),
@@ -65,6 +67,10 @@ def calls_of_every_layer():
                             aggs=("sum", "count"), max_groups=5)
     hashjoin.lookup_join(keys % 900, torch.arange(1000),
                          (torch.arange(1000) * 3,))
+    hashjoin.semi_join(keys % 900, (torch.arange(4096),), torch.arange(300))
+    tsrs.sort_multi((torch.rand(4096, generator=g, dtype=torch.float64),
+                     (keys % 7).to(torch.int32), keys), torch.arange(4096),
+                    ascending=(False, True, True), device="cpu")
 
 
 def test_names_are_the_ports_own():
@@ -76,7 +82,7 @@ def test_names_are_the_ports_own():
     assert {f"srs.engine.{m}" for m in methods.REGISTRY} <= \
         set(profiling.SPANS)
     bench = {WINDOW, CALL}
-    for conf in ("sort_thesis", "tpch_sf30"):
+    for conf in ("sort_thesis", "tpch_sf30", "tpch_sf100"):
         bench |= set(harness.load_file_module("configs", conf).SPANS)
     assert not bench & set(profiling.SPANS)
 
@@ -209,18 +215,27 @@ def test_span_readers_by_hand():
     q = [record("query"), record("query", traced=False)]
     ev = [Event(WINDOW, "op", 0, 100), Event("query", "op", 0, 90),
           Event("srs.hashagg.scan", "op", 10, 20),
-          Event("srs.join.build", "op", 30, 40)]
+          Event("srs.join.build", "op", 30, 40),
+          Event("srs.hashagg.compact", "op", 60, 64),
+          Event("srs.join.semi", "op", 70, 80),
+          Event("srs.sort_multi", "op", 82, 88)]
     ev += launch(12, 15, 25, 1) + launch(35, 36, 41, 2) + launch(50, 50, 60, 3)
+    ev += launch(61, 62, 66, 4) + launch(72, 74, 77, 5) + launch(83, 84, 85, 6)
     run = harness.Run("w", q, 1.0, 0.0, 0, trace=Trace(ev, {"query"}))
     assert metric("operators.scan_ms")(run) == pytest.approx(0.010)
     assert metric("operators.join_build_ms")(run) == pytest.approx(0.005)
+    assert metric("operators.agg_compact_ms")(run) == pytest.approx(0.004)
+    assert metric("operators.semi_join_ms")(run) == pytest.approx(0.003)
+    # busy [84,85], and idle [82,84] and [85,88] while inside the span
+    assert metric("operators.orderby_us")(run) == pytest.approx(6.0)
 
 
 def test_span_readers_read_nothing_where_there_is_nothing():
     recs = [record("sort"), record("query")]
     names = ("engine.transform_ms", "kernels.gather_ms",
              "engine.idle_in_sort_us", "operators.scan_ms",
-             "operators.join_build_ms")
+             "operators.join_build_ms", "operators.agg_compact_ms",
+             "operators.semi_join_ms", "operators.orderby_us")
     # no trace; a trace without the program's spans (a program that has
     # none); one without a call of the metric's kind
     bare = Trace([Event(WINDOW, "op", 0, 10), *launch(1, 2, 3, 1)], set())
