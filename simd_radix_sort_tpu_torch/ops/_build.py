@@ -3,10 +3,13 @@
 The sources under `csrc/` are compiled with nvcc for Hopper (`sm_90a`), one
 nvcc process per source, all started together, and linked into one shared
 library with a plain C interface, at first use, into `build/srs_torch/`
-beside the package.  The library's name carries a hash of the sources and
-flags, so an edited source is rebuilt and an unchanged one is loaded as it
-is.  nvcc's report (registers, shared memory and spills per kernel, from
-`-Xptxas -v`) is kept next to the library as `<name>.log`.
+beside the package.  The library's name carries a hash of the sources, the
+headers beside them and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  cub's pair sort (`sort_pairs*.cu`) is
+spread over one source a key type, since nvcc takes longest over cub's
+instantiations and the sources compile side by side.  nvcc's report
+(registers, shared memory and spills per kernel, from `-Xptxas -v`) is kept
+next to the library as `<name>.log`.
 """
 
 from __future__ import annotations
@@ -22,9 +25,12 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "hist_kernels.cu",
-           _PKG / "csrc" / "partition_kernels.cu",
-           _PKG / "csrc" / "scan_kernels.cu")
+_CSRC = _PKG / "csrc"
+SORT_PAIRS_KEYS = ("u8", "i8", "u16", "i16", "u32", "i32", "u64", "i64")
+SOURCES = (_CSRC / "hist_kernels.cu", _CSRC / "partition_kernels.cu",
+           _CSRC / "scan_kernels.cu", _CSRC / "sort_pairs.cu",
+           *(_CSRC / f"sort_pairs_{k}.cu" for k in SORT_PAIRS_KEYS))
+HEADERS = (_CSRC / "sort_pairs.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "srs_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _U, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                    ctypes.c_longlong)
 _PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+_SZ, _PSZ = ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)
 # name -> argtypes; every entry returns a cudaError_t as int
 _SIGNATURES = {
     "srs_histogram": (_P, _I, _LL, _U, _I, _P, _P),
@@ -42,6 +49,8 @@ _SIGNATURES = {
     "srs_partition_count": (_P, _LL, _I, _P, _P),
     "srs_partition_scatter": (_P, _LL, _I, _P, _I, _PP, _PP, _PI, _P),
     "srs_segmented_scan": (_P, _LL, _I, _I, _I, _PP, _PP, _P, _P, _P),
+    "srs_sort_pairs_temp_bytes": (_I, _I, _I, _I, _PSZ, _P),
+    "srs_sort_pairs": (_I, _I, _I, _P, _P, _P, _P, _I, _P, _SZ, _P),
 }
 
 
@@ -61,7 +70,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsrs_kernels_{h.hexdigest()[:16]}.so"
 

@@ -51,6 +51,7 @@ SPANS = (
     "srs.count.fallback",          # wider: the comparison sort
     "srs.xla.sort",                # xla_sort.sort_arrays: torch.sort
     "srs.xla.gather",              # its payload gathers
+    "srs.xla.pairs",               # its one-payload calls: cub's pair sort
     "srs.compact",                 # ops/filter.compact, whole
     "srs.k5",                      # cuda_partition.partition_pass
     "srs.widen",                   # cuda_partition.to_words, from_words
@@ -69,7 +70,8 @@ SPANS = (
 # waits for a value of the device at that site; compaction.*: bytes read
 # and written, by the rule in the docstring of the function that counts
 # (K5 and the widening count on every path, the radix engine's too);
-# hashagg.scan.*: K7's launches on the card and their bytes.
+# hashagg.scan.*: K7's launches on the card and their bytes;
+# xla.pairs_calls: the xla engine's calls that take cub's pair sort.
 COUNTER_NAMES = (
     "host_syncs.count.range",      # counting.sort_keys's min/max read
     "host_syncs.filter.fill",      # each scalar _fill sends to the device
@@ -78,6 +80,7 @@ COUNTER_NAMES = (
     "compaction.fill_bytes",       # filter.compact(fill=...)
     "hashagg.scan.k7_launches",    # cuda_scan.segmented_scans on the card
     "hashagg.scan.k7_bytes",       # the same launches' k7_bytes
+    "xla.pairs_calls",             # xla_sort.sort_arrays with one payload
 )
 COUNTERS: collections.Counter = collections.Counter()
 

@@ -87,10 +87,13 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 def test_kernel_sources_and_build_flags():
-    assert [s.name for s in _build.SOURCES] == ["hist_kernels.cu",
-                                                 "partition_kernels.cu",
-                                                 "scan_kernels.cu"]
-    assert all(src.is_file() for src in _build.SOURCES)
+    pairs = [f"sort_pairs_{k}.cu" for k in ("u8", "i8", "u16", "i16", "u32",
+                                            "i32", "u64", "i64")]
+    assert [s.name for s in _build.SOURCES] == [
+        "hist_kernels.cu", "partition_kernels.cu", "scan_kernels.cu",
+        "sort_pairs.cu", *pairs]
+    assert [h.name for h in _build.HEADERS] == ["sort_pairs.cuh"]
+    assert all(src.is_file() for src in _build.SOURCES + _build.HEADERS)
     text = "".join(src.read_text() for src in _build.SOURCES)
     for entry in _build._SIGNATURES:
         assert text.count(f"int {entry}(") == 1

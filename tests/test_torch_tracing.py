@@ -33,6 +33,7 @@ PARENTS = {
     "srs.xla.sort": ("srs.engine.xla", "srs.hashagg.sort", "srs.join.build"),
     "srs.xla.gather": ("srs.engine.xla", "srs.hashagg.sort",
                        "srs.join.build"),
+    "srs.xla.pairs": ("srs.engine.xla", "srs.hashagg.sort", "srs.join.build"),
     "srs.k5": ("srs.compact",), "srs.widen": ("srs.compact",),
     "srs.fill": ("srs.compact",),
     "srs.hashagg.sort": ("srs.hashagg",), "srs.hashagg.scan": ("srs.hashagg",),
@@ -49,9 +50,11 @@ def fresh_counters():
 
 
 def calls_of_every_layer():
-    """A sort through count (each branch), one through xla, a filter, a
-    group-aggregate with a float sum, a lookup join, a semi-join and a
-    multi-column sort, on the CPU."""
+    """A sort through count (each branch), two through xla (one payload:
+    the pair sort; two: torch.sort and the gathers), a filter, a
+    group-aggregate with a float sum and one with two, a lookup join of one
+    payload and one of two, a semi-join and a multi-column sort, on the
+    CPU."""
     g = torch.Generator().manual_seed(7)
     n = 1 << 14  # counting.SMALL_MIN_N: the 1024-bucket branch opens
     tsrs.sort(torch.randint(0, 256, (n,), generator=g, dtype=torch.uint8),
@@ -61,12 +64,17 @@ def calls_of_every_layer():
                   method="count", ascending=False, device="cpu")
     keys = torch.randint(0, 1 << 40, (4096,), generator=g)
     tsrs.sort(keys, torch.arange(4096), method="xla", device="cpu")
+    tsrs.sort(keys, torch.arange(4096), keys % 3, method="xla", device="cpu")
     filt.filter_rows(lambda k: k % 3 == 0, keys, torch.arange(4096) % 7)
     hashagg.group_aggregate(keys % 5, torch.rand(4096, generator=g,
                                                  dtype=torch.float64),
                             aggs=("sum", "count"), max_groups=5)
+    hashagg.group_aggregate(keys % 5, (keys % 11, keys % 13), aggs=("min",),
+                            max_groups=5)
     hashjoin.lookup_join(keys % 900, torch.arange(1000),
                          (torch.arange(1000) * 3,))
+    hashjoin.lookup_join(keys % 900, torch.arange(1000),
+                         (torch.arange(1000) * 3, torch.arange(1000) % 7))
     hashjoin.semi_join(keys % 900, (torch.arange(4096),), torch.arange(300))
     tsrs.sort_multi((torch.rand(4096, generator=g, dtype=torch.float64),
                      (keys % 7).to(torch.int32), keys), torch.arange(4096),
