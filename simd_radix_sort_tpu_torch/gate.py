@@ -13,9 +13,8 @@ Counterpart of ci.sh, section by section:
              of the same pyproject.toml, checked to carry this package and
              its kernel sources, without changing the interpreter's
              installed packages;
-  lint       ruff, else pyflakes, on this package, tests/test_torch_*.py and
-             chip_smoke.py; with neither installed, skipped with ci.sh's
-             notice;
+  lint       ruff, else pyflakes, on this package and tests/test_torch_*.py;
+             with neither installed, skipped with ci.sh's notice;
   tests      pytest on tests/test_torch_*.py (-m "not slow" with --quick);
   entry      entry.entry() and entry.dryrun_multichip(P): P the cards, or 8
              Gloo ranks with --device cpu;
@@ -73,7 +72,7 @@ def port_tests() -> list[str]:
 
 def lint_argv() -> tuple:
     """ruff's command, else pyflakes', else () (no linter installed)."""
-    targets = [PACKAGE, *port_tests(), "chip_smoke.py"]
+    targets = [PACKAGE, *port_tests()]
     ruff = shutil.which("ruff")
     if ruff:
         return (ruff, "check", *targets)

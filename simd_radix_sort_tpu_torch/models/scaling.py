@@ -6,11 +6,12 @@ model and the H100's constants.  It prices every phase of
 sort) and of `parallel.multihost.hierarchical_sort` (the extra
 between-hosts tier) from
 
-  * the MEASURED single-card sort: case (a) of chip_smoke.py, u64 key +
-    u64 payload at 10^8 rows on one H100 (`torch.sort` on the carrier plus
-    one gather), local time scaled as c * n * log2(n);
+  * the MEASURED single-card sort: case (a) of the repository's former card
+    smoke script at commit 3f9292d, u64 key + u64 payload at 10^8 rows on
+    one H100 (`torch.sort` on the carrier plus one gather), local time
+    scaled as c * n * log2(n);
   * the MEASURED blocked final pass, collective latency and exchange rates
-    (chip_smoke.py phase 6); and
+    (the same script's phase 6, the same run); and
   * NVIDIA's published NVLink and InfiniBand figures, derated by an
     explicit achievable-fraction knob rather than silently: no machine
     this was measured on joins two cards by a link, so they are
@@ -84,13 +85,15 @@ MEASURED_ANCHOR = {
     "rows_per_s": 1e8 / 17.578304290771484e-3,
     "n": 1e8,
     "row_bytes": 16,
-    "provenance": "chip_smoke.py case (a), NVIDIA H100 80GB HBM3 at "
+    "provenance": "the former card smoke script's case (a) at commit "
+                  "3f9292d (since removed), NVIDIA H100 80GB HBM3 at "
                   "700.00 W: 17.578304290771484 ms (PERF.md §6, the "
                   "measurement layer's run 2)",
 }
 
-# Measured communication constants (chip_smoke.py phase 6, NVIDIA H100
-# 80GB HBM3 at 700.00 W, PERF.md §6, the measurement layer's run 2):
+# Measured communication constants (the former card smoke script's phase 6
+# at commit 3f9292d, since removed; NVIDIA H100 80GB HBM3 at 700.00 W,
+# PERF.md §6, the measurement layer's run 2):
 #   * collective_latency_s_nccl: one int32 all_reduce in a 64-deep
 #     dependent chain on an NCCL group of ONE rank, issued from the host
 #     (no link is crossed: this is the c10d call and NCCL's launch and
@@ -109,7 +112,8 @@ MEASURED_COMM = {
     "nccl_self_exchange_bytes_per_s": 1240048612354.5376,
     "gloo_bytes_per_s_per_proc": 800650782.2625437,
     "collective_latency_s_gloo": 0.0011000006093748738,
-    "provenance": "chip_smoke.py phase 6, NVIDIA H100 80GB HBM3 at "
+    "provenance": "the former card smoke script's phase 6 at commit "
+                  "3f9292d (since removed), NVIDIA H100 80GB HBM3 at "
                   "700.00 W; the Gloo ranks on that machine's CPU "
                   "(PERF.md §6, the measurement layer's run 2)",
 }
@@ -156,7 +160,8 @@ def dcn_required_for_clause(n_per_chip: float = 1e8, row_bytes: int = 16,
     return dcn_bytes / t_budget
 
 
-# Measured blocked final pass (chip_smoke.py phase 6): case (q)'s blocked
+# Measured blocked final pass (the former card smoke script's phase 6 at
+# commit 3f9292d, since removed): case (q)'s blocked
 # shape at P = 1, 8 segments of 2.5·10^7 padded rows (capacity factor 2,
 # each half filled with u64+u64 rows of its key range), each segment's
 # valid prefix sorted as `dist_sort._sort_prefix` does; the rate counts

@@ -7,7 +7,8 @@ its inputs and allocates its outputs; for a CUDA tensor it launches its
 hand-written kernel (csrc/hist_kernels.cu, built by ops/_build.py) or
 raises, and for a CPU tensor it runs the plain PyTorch version defined
 beside it.  The plain versions compute the same function on any device, and
-chip_smoke.py holds each kernel against its plain version on the card.
+tests/test_torch_kernels_card.py holds each kernel against its plain
+version on the card.
 
 Carriers are 1-, 2- or 4-byte integer tensors of any signedness; the
 kernels read their raw bits as unsigned integers of that width.

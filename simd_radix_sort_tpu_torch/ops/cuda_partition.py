@@ -6,7 +6,8 @@ is built on.  `partition_pass` puts every mask=False row first and every
 mask=True row after them, each side in input order.  For a CUDA tensor it
 launches the hand-written kernel (csrc/partition_kernels.cu, built by
 ops/_build.py) or raises; for a CPU tensor it runs `partition_pass_plain`,
-which chip_smoke.py also holds the kernel against on the card.
+which tests/test_torch_kernels_card.py also holds the kernel against on
+the card.
 
 The kernel moves 4- and 8-byte words as they are: the JAX version splits
 8-byte values into two u32 words only because its kernel carries 16-bit

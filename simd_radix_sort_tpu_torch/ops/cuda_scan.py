@@ -6,8 +6,8 @@ pairs with `jax.lax.associative_scan` (simd_radix_sort_tpu/ops/hashagg.py,
 `_segmented_scan`).  `segmented_scans` computes the same function.  For a
 CUDA tensor it launches the hand-written kernel (csrc/scan_kernels.cu,
 built by ops/_build.py) or raises; for a CPU tensor it runs
-`segmented_scans_plain`, which chip_smoke.py and the card's tests also hold
-the kernel against.
+`segmented_scans_plain`, which tests/test_torch_scan_card.py also holds
+the kernel against on the card.
 
 The kernel is bound by bytes.  It is reduce-then-scan in three launches on
 one stream (tile summaries, one block's scan of them, each tile's rows

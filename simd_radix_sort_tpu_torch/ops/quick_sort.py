@@ -92,7 +92,7 @@ SEGMENT_TARGET = 1024
 
 # Which way each call of `sort_arrays` went: one plain sort (below the
 # threshold or past the engine's range), the blocked cleanup, or the
-# anti-skew fallback.  Read by tests and chip_smoke.py.
+# anti-skew fallback.  Read by tests.
 PATHS = {"one_sort": 0, "blocked": 0, "fallback": 0}
 
 

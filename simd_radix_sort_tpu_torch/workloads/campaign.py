@@ -112,7 +112,7 @@ LARGE_N_MAX = 1 << 27
 # part f: the sizes and engines of the 2- and 4-byte keys-only tables
 ADAPTIVE_TABLE_NS = tuple(1 << e for e in range(22, 27))
 DEVICE_METHODS = ["xla", "radix", "count", "quick"]
-# part g: key types, shapes (chip_smoke.k1_keys' three draws) and spans
+# part g: key types, shapes (kernel_ab.k1_keys' three draws) and spans
 GATE_TYPES = ("int16", "uint16", "int32", "uint32")
 GATE_SHAPES = ("Uniform", "Zipf", "OneValue")
 GATE_COLUMNS = ("branch", "fallback", "xla")

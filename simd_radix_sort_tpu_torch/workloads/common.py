@@ -14,7 +14,6 @@ from __future__ import annotations
 import contextlib
 import socket
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -130,21 +129,6 @@ def timeit(fn, args=(), reps: int = 5, warmup: int = 2,
             out = fn(*args)
         fence(device)
     return (time.perf_counter() - t0) / reps
-
-
-def host_syncs(fn):
-    """(fn(), where it made the host wait for the card: one "file:line" of
-    the Python call for each wait), as torch's sync debug mode reports
-    them.  CUDA only."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return out, [f"{w.filename}:{w.lineno}" for w in caught
-                 if "synchroniz" in str(w.message)]
 
 
 def device_name(device: torch.device) -> str:

@@ -226,7 +226,7 @@ def test_gate_plan_follows_ci_sh(quick, multiproc):
     lint = by["lint"].argv
     assert lint == gate.lint_argv()
     if lint:
-        assert {gate.PACKAGE, "chip_smoke.py"} <= set(lint)
+        assert {gate.PACKAGE, *gate.port_tests()} <= set(lint)
         assert not [a for a in lint if a.startswith("tests/")
                     and not a.startswith("tests/test_torch_")]
 

@@ -3,7 +3,8 @@ JAX package's, on the CPU.
 
 The same seeded NumPy inputs go through the JAX function and its port; the
 port runs on CPU tensors, where semi_join's and unique's compactions run
-K5's plain version (chip_smoke.py holds K5 against that on the card).
+K5's plain version (tests/test_torch_kernels_card.py holds K5 against that
+on the card).
 Every output here is an integer, a key or a moved payload, so all are
 compared exactly.  Where the JAX package's own order rests on an unstable
 sort (which of several equal build keys comes first), the rows are

@@ -3,8 +3,8 @@ package's Pallas kernels run in interpret mode, exactly.
 
 On a CPU tensor each wrapper in ops/cuda_hist.py runs its plain PyTorch
 version; the CUDA kernels themselves are held against those plain versions
-on the card by chip_smoke.py.  The parameter grids are those of
-tests/test_pallas_hist.py.
+on the card by tests/test_torch_kernels_card.py.  The parameter grids are
+those of tests/test_pallas_hist.py.
 """
 
 import functools
@@ -313,11 +313,11 @@ def _pallas_k23(u_bytes: bytes, width: int):
 @pytest.mark.parametrize("case", list(cuda_hist.k23_edge_cases(2)))
 def test_k23_edge_cases_match_pallas(case, width):
     """K2 and K3 on the inputs that reach every path of their kernels
-    (cuda_hist.k23_edge_cases, which chip_smoke.py also runs on the card):
-    the port's minmax_hist16 and tiny_sort16 equal the Pallas kernels on
-    u = carrier ^ flip zero-extended, exactly; K3's output modulo 2^w, the
-    carrier's width, for the ranges of 16 and more, whose paint may carry
-    past it in the TPU kernel's uint32."""
+    (cuda_hist.k23_edge_cases, which test_torch_kernels_card.py also runs
+    on the card): the port's minmax_hist16 and tiny_sort16 equal the
+    Pallas kernels on u = carrier ^ flip zero-extended, exactly; K3's
+    output modulo 2^w, the carrier's width, for the ranges of 16 and more,
+    whose paint may carry past it in the TPU kernel's uint32."""
     carrier, flip, start = cuda_hist.k23_edge_cases(width)[case]
     x = _t(carrier)[start:]
     mask = (1 << (8 * width)) - 1

@@ -4,7 +4,7 @@ test_torch_joins_topk.py).
 
 The same seeded NumPy inputs go through the JAX function and its port; the
 port runs on CPU tensors, where every compaction runs K5's plain version
-(chip_smoke.py holds K5 against that on the card).
+(tests/test_torch_kernels_card.py holds K5 against that on the card).
 
 Tolerances: keys, indices, counts, integer aggregates and min/max are
 compared exactly (bytes, or values with NaN equal to NaN).  Float sums and

@@ -6,8 +6,8 @@ exactly.
 The JAX `fill_runs_packed` (scripts/u8_attack.py) runs only on a TPU (no
 interpret flag, scalar prefetch); that script holds it against
 `pallas_hist.fill_runs(h, n, 0, uint8)`, which is what K6 is held against
-here.  chip_smoke.py holds both CUDA kernels against these plain versions
-on the card.
+here.  tests/test_torch_kernels_card.py holds both CUDA kernels against
+these plain versions on the card.
 """
 
 import numpy as np

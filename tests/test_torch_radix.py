@@ -8,7 +8,7 @@ variadic sort; cheap on the CPU) over every digit width, and also against
 the JAX mover of its own kind where that runs in reasonable time: the JAX
 `scatter` mover once per key dtype, the JAX `pallas` mover (interpret mode)
 on two narrow-key cases.  The port's `pallas` mover runs K5's plain version
-here; chip_smoke.py runs the kernel.
+here; tests/test_torch_paths_card.py runs the kernel.
 """
 
 import numpy as np

@@ -6,8 +6,8 @@ where there is no CUDA card.  On the card:
     python -m pytest tests/test_torch_scan_card.py -q -p no:cacheprovider --noconftest
 
 (`--noconftest`: the suite's conftest sets JAX up, and nothing here needs
-it).  Each output is held by `chip_smoke.k7_hold`: minimum, maximum and
-the integer carriers exactly (values, NaN equal to NaN); float32 and
+it).  Each output is held by `k7_hold`: minimum, maximum and the
+integer carriers exactly (values, NaN equal to NaN); float32 and
 float64 sums to the parity tests' rtol (test_torch_operators.py) relative
 to the segment's running sum of magnitudes; 2-byte float sums exactly, on
 values whose every partial sum is exact in either order.
@@ -16,7 +16,6 @@ values whose every partial sum is exact in either order.
 import pytest
 import torch
 
-import chip_smoke
 from simd_radix_sort_tpu_torch.ops import cuda_scan, hashagg
 from simd_radix_sort_tpu_torch.utils import profiling
 
@@ -30,6 +29,7 @@ INTS = (torch.int64, torch.int32, torch.int16, torch.int8)
 CASES = ([(dt, "sum") for dt in FLOATS] +
          [(dt, op) for dt in FLOATS + INTS for op in ("min", "max")])
 KINDS = ("random", "one segment", "every row")
+K7_RTOL = {"float32": 1e-5, "float64": 1e-12}  # the parity tests' rtol
 
 
 @pytest.fixture(scope="module")
@@ -80,8 +80,44 @@ def _values(dtype, op, n, g, device):
     return v.to(device)
 
 
+def k7_hold(got, want, vals, starts, ops, what: str) -> None:
+    """K7's outputs against its plain version's: integers, minimum and
+    maximum exactly (NaN where NaN); float32 and float64 sums within the
+    tests' rtol of the segment's running sum of magnitudes; 2-byte float
+    sums exactly (on values whose partial sums are exact in any order).
+    Row 0 must start a segment."""
+    seg = torch.cumsum(starts.to(torch.int64), 0) - 1
+    first = torch.nonzero(starts).flatten()
+    for q, (a, b, v, op) in enumerate(zip(got, want, vals, ops)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"K7 {what} stream {q}: {a.dtype} "
+                                 f"{tuple(a.shape)}, plain {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        if not a.dtype.is_floating_point:
+            same = torch.equal(a, b)
+        else:
+            x, y = a.to(torch.float64), b.to(torch.float64)
+            same = torch.equal(x.isnan(), y.isnan())
+            ok = ~y.isnan()
+            if op != "sum" or a.dtype.itemsize == 2:
+                same = same and torch.equal(x[ok], y[ok])
+            else:
+                inf = ok & y.isinf()
+                fin = ok & ~inf
+                m = torch.nan_to_num(v.to(torch.float64).abs(), nan=0.0,
+                                     posinf=0.0)
+                c = torch.cumsum(m, 0)
+                run = c - (c - m)[first][seg.clamp_min(0)]
+                rtol = K7_RTOL[str(a.dtype).split(".")[1]]
+                same = same and torch.equal(x[inf], y[inf]) and bool(
+                    ((x - y).abs()[fin] <= rtol * run[fin]).all())
+        if not same:
+            raise AssertionError(f"K7 {what} stream {q} ({a.dtype} {op}): "
+                                 "kernel differs from its plain version")
+
+
 def _hold(got, want, v, starts, op):
-    chip_smoke.k7_hold([got], [want], [v], starts, [op], op)
+    k7_hold([got], [want], [v], starts, [op], op)
 
 
 @pytest.mark.parametrize("kind", KINDS)
