@@ -16,6 +16,8 @@ struct Args {
   const void* values_in;
   void* values_out;
   int n;
+  int begin_bit;
+  int end_bit;
   cudaStream_t stream;
 };
 
@@ -23,7 +25,8 @@ template <typename K, bool D>
 cudaError_t by_width(int value_width, const Args& a) {
 #define SRS_SORT(V)                                                    \
   srs::sort_pairs<K, V, D>(a.temp, a.temp_bytes, a.keys_in, a.keys_out, \
-                           a.values_in, a.values_out, a.n, a.stream)
+                           a.values_in, a.values_out, a.n, a.begin_bit, \
+                           a.end_bit, a.stream)
   switch (value_width) {
     case 1: return SRS_SORT(uint8_t);
     case 2: return SRS_SORT(uint16_t);
@@ -61,27 +64,30 @@ cudaError_t dispatch(int key, int value_width, int descending,
 
 extern "C" {
 
-// The bytes of temp storage srs_sort_pairs needs for n pairs, into
-// *temp_bytes.  Launches nothing.
+// The bytes of temp storage srs_sort_pairs needs for n pairs by the key
+// bits [begin_bit, end_bit), into *temp_bytes.  Launches nothing.
 int srs_sort_pairs_temp_bytes(int key, int value_width, int descending,
-                              int n, size_t* temp_bytes, void* stream) {
+                              int n, int begin_bit, int end_bit,
+                              size_t* temp_bytes, void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   *temp_bytes = 0;
   const Args a{nullptr, temp_bytes, nullptr, nullptr, nullptr, nullptr, n,
-               (cudaStream_t)stream};
+               begin_bit, end_bit, (cudaStream_t)stream};
   return (int)dispatch(key, value_width, descending, a);
 }
 
-// Sorts n (key, value) pairs into keys_out and values_out, the inputs left
-// as they are; `temp` holds the `temp_bytes` srs_sort_pairs_temp_bytes
-// gave for the same arguments.
+// Sorts n (key, value) pairs by the key bits [begin_bit, end_bit) into
+// keys_out and values_out, the inputs left as they are; `temp` holds at
+// least the `temp_bytes` srs_sort_pairs_temp_bytes gives for the same
+// arguments (cub refuses less: cudaErrorInvalidValue).
 int srs_sort_pairs(int key, int value_width, int descending,
                    const void* keys_in, void* keys_out,
                    const void* values_in, void* values_out, int n,
-                   void* temp, size_t temp_bytes, void* stream) {
+                   int begin_bit, int end_bit, void* temp, size_t temp_bytes,
+                   void* stream) {
   if (n < 0 || temp == nullptr) return (int)cudaErrorInvalidValue;
   const Args a{temp, &temp_bytes, keys_in, keys_out, values_in, values_out,
-               n, (cudaStream_t)stream};
+               n, begin_bit, end_bit, (cudaStream_t)stream};
   return (int)dispatch(key, value_width, descending, a);
 }
 

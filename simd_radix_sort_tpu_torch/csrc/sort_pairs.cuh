@@ -21,7 +21,9 @@
 //
 // Bound: bytes.  cub's onesweep passes read and write every key and value
 // once a pass of 8 key bits, (k + v) bytes a row each way for k-byte keys
-// and v-byte values.
+// and v-byte values.  The caller gives the window of bits in which the keys
+// differ (key_bits.cu), so a key type wider than its keys' range pays only
+// for the passes over that range.
 //
 // Each (key type, value width, direction) is one dispatch of cub's, a few
 // kernels nvcc compiles for it.  The sources sort_pairs_<key>.cu instantiate
@@ -41,33 +43,37 @@
 namespace srs {
 
 // Sorts n (key, value) pairs, K keys and V values (an unsigned type of the
-// payload's width), ascending or descending, on `stream`.  With temp ==
-// nullptr it writes the temp storage cub needs to *temp_bytes and launches
-// nothing; else *temp_bytes is the size of `temp`.  The inputs are left as
-// they are.
+// payload's width), ascending or descending, on `stream`, by the key bits
+// [begin_bit, end_bit): one 8-bit pass of cub's for each 8 bits of the
+// window.  With temp == nullptr it writes the temp storage cub needs to
+// *temp_bytes and launches nothing; else *temp_bytes is the size of `temp`.
+// The inputs are left as they are.
 template <typename K, typename V, bool Descending>
 cudaError_t sort_pairs(void* temp, size_t* temp_bytes, const void* keys_in,
                        void* keys_out, const void* values_in,
-                       void* values_out, int n, cudaStream_t stream);
+                       void* values_out, int n, int begin_bit, int end_bit,
+                       cudaStream_t stream);
 
 #ifdef SRS_SORT_PAIRS_DEFINE
 
 template <typename K, typename V, bool Descending>
 cudaError_t sort_pairs(void* temp, size_t* temp_bytes, const void* keys_in,
                        void* keys_out, const void* values_in,
-                       void* values_out, int n, cudaStream_t stream) {
+                       void* values_out, int n, int begin_bit, int end_bit,
+                       cudaStream_t stream) {
   const K* ki = static_cast<const K*>(keys_in);
   K* ko = static_cast<K*>(keys_out);
   const V* vi = static_cast<const V*>(values_in);
   V* vo = static_cast<V*>(values_out);
-  const int end_bit = 8 * (int)sizeof(K);
+  if (begin_bit < 0 || end_bit <= begin_bit || end_bit > 8 * (int)sizeof(K))
+    return cudaErrorInvalidValue;
   cudaError_t err;
   if constexpr (Descending)
     err = cub::DeviceRadixSort::SortPairsDescending(
-        temp, *temp_bytes, ki, ko, vi, vo, n, 0, end_bit, stream);
+        temp, *temp_bytes, ki, ko, vi, vo, n, begin_bit, end_bit, stream);
   else
     err = cub::DeviceRadixSort::SortPairs(temp, *temp_bytes, ki, ko, vi, vo,
-                                          n, 0, end_bit, stream);
+                                          n, begin_bit, end_bit, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -76,7 +82,7 @@ cudaError_t sort_pairs(void* temp, size_t* temp_bytes, const void* keys_in,
 #define SRS_SORT_PAIRS_ONE(K, V, D)                                        \
   template cudaError_t sort_pairs<K, V, D>(void*, size_t*, const void*,   \
                                            void*, const void*, void*, int, \
-                                           cudaStream_t);
+                                           int, int, cudaStream_t);
 #define SRS_SORT_PAIRS_DIRECTION(K, D)  \
   SRS_SORT_PAIRS_ONE(K, uint8_t, D)     \
   SRS_SORT_PAIRS_ONE(K, uint16_t, D)    \

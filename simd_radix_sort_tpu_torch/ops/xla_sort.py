@@ -6,7 +6,7 @@ users pass `method="xla"`.  A call with exactly one payload stream (and at
 most cuda_sort.MAX_ITEMS rows) sorts the keys and the payload together with
 cub's pair sort (ops/cuda_sort.py), as the JAX package hands the payload to
 `jax.lax.sort`: integer keys as they are, floating keys as their signed
-carrier.  Every other call sends the keys through the order-preserving
+carrier, by the key bits in which the keys differ.  Every other call sends the keys through the order-preserving
 transform to a signed carrier (utils/transforms.py), `torch.sort` orders
 the carrier, and each payload stream follows with one `index_select` on
 its signed view (torch has no gather for uint16/32/64).

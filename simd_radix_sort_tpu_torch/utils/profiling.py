@@ -52,6 +52,7 @@ SPANS = (
     "srs.xla.sort",                # xla_sort.sort_arrays: torch.sort
     "srs.xla.gather",              # its payload gathers
     "srs.xla.pairs",               # its one-payload calls: cub's pair sort
+    "srs.xla.bits",                # their K8 launches and the window's read
     "srs.compact",                 # ops/filter.compact, whole
     "srs.k5",                      # cuda_partition.partition_pass
     "srs.widen",                   # cuda_partition.to_words, from_words
@@ -71,16 +72,20 @@ SPANS = (
 # and written, by the rule in the docstring of the function that counts
 # (K5 and the widening count on every path, the radix engine's too);
 # hashagg.scan.*: K7's launches on the card and their bytes;
-# xla.pairs_calls: the xla engine's calls that take cub's pair sort.
+# xla.pairs_*: the xla engine's calls that take cub's pair sort, the 8-bit
+# passes cub is given and the sorts given fewer than their key's width.
 COUNTER_NAMES = (
     "host_syncs.count.range",      # counting.sort_keys's min/max read
     "host_syncs.filter.fill",      # each scalar _fill sends to the device
+    "host_syncs.xla.bits",         # cuda_sort.bit_window's read of K8's word
     "compaction.k5_bytes",         # cuda_partition.partition_pass
     "compaction.widen_bytes",      # cuda_partition.to_words, from_words
     "compaction.fill_bytes",       # filter.compact(fill=...)
     "hashagg.scan.k7_launches",    # cuda_scan.segmented_scans on the card
     "hashagg.scan.k7_bytes",       # the same launches' k7_bytes
     "xla.pairs_calls",             # xla_sort.sort_arrays with one payload
+    "xla.pairs_passes",            # cub's passes over their bit windows
+    "xla.pairs_narrowed",          # those given fewer than the key's width
 )
 COUNTERS: collections.Counter = collections.Counter()
 

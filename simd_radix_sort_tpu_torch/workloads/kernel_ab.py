@@ -1,4 +1,4 @@
-"""Time the port's kernels K1-K7 on one card, and compare checkouts' kernels
+"""Time the port's kernels K1-K8 on one card, and compare checkouts' kernels
 in turns.
 
     python -m simd_radix_sort_tpu_torch.workloads.kernel_ab \\
@@ -11,21 +11,24 @@ order, one child process runs this file, from that root and with that
 root's package first on its path: it builds that checkout's kernels, then
 records
 
-  - the kernel table (`kernel_rows`): each of K1-K7 at the shape of its row
-    (n rows; K7 at Q1's shape at TPC-H SF30 and at 10^6 rows): the
+  - the kernel table (`kernel_rows`): each of K1-K8 at the shape of its row
+    (n rows; K7 at Q1's shape at TPC-H SF30 and at 10^6 rows; K8 at 10^8
+    and 6.0e8 int64 keys, where the checkout has it): the
     wrapper's call ms, the kernel's device ms, the plain version's ms, one
     library call's ms and the bound (the bytes the kernel must move at the
     card's memory rate);
   - K1 at the distributions the count engine hands it (`k1_shape_timings`:
     K1_SHAPES, S1-S11);
   - K2 and K3 at 22 shapes (`k23_shape_timings`: int32 and int16 keys at
-    the eight reference distributions and S6-S8's draws).
+    the eight reference distributions and S6-S8's draws);
+  - one host read of K8's word (`host_read_timings`), where the checkout
+    has K8.
 
 The outputs of K1-K6's timed launches are held against their plain
-versions, and K7's calls against each other.  The helpers come from this
-file and the kernels from the checkout, so a checkout must have K2's
-cuda_hist.STATS_WORDS interface; K7 is timed where the checkout has
-ops/cuda_scan.py.
+versions, K7's calls against each other and K8's words against its plain
+version's.  The helpers come from this file and the kernels from the
+checkout, so a checkout must have K2's cuda_hist.STATS_WORDS interface; K7
+is timed where the checkout has ops/cuda_scan.py.
 
 Then this process times each checkout's `minmax_hist16` and `tiny_sort16`
 calls at 2^22 Uniform int32 and int16 keys, the checkouts' packages
@@ -485,6 +488,87 @@ def k7_timings(seed: int, reps: int, dev, chip) -> list:
     return rows
 
 
+# K8, the key bits of cub's pair sort, at 10^8 rows and at Q18's 6.0e8
+# l_orderkey rows (SF100), int64 keys in [1, 6.0e8]: a window narrower than
+# the key, so the whole stream is read
+K8_TIMED_ROWS = (100_000_000, 600_000_000)
+K8_KEY_MAX = 600_000_000
+HOST_READS = 200  # reads a round of host_read_timings
+HOST_READ_ROUNDS = 21
+
+
+def k8_timings(seed: int, reps: int, dev, chip) -> list:
+    """K8 at K8_TIMED_ROWS: the wrapper's call ms (CUDA events), the device
+    ms of bare launches of its C entry (event_device_ms: both kernels), the
+    plain version's ms on the card, torch.aminmax's (the library's nearest
+    reduction) and the bound, n * 8 bytes read once.  The kernel's words
+    are held against the plain version's."""
+    import torch
+
+    from simd_radix_sort_tpu_torch.models import roofline
+    from simd_radix_sort_tpu_torch.ops import _build, cuda_sort as cs
+
+    rows = []
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    for n in K8_TIMED_ROWS:
+        keys = torch.randint(1, K8_KEY_MAX + 1, (n,), generator=g,
+                             device=dev, dtype=torch.int64)
+        _held("key_bits", [cs.key_bits(keys)], [cs.key_bits_plain(keys)],
+              f"int64 [1, {K8_KEY_MAX}] n={n}")
+        words = torch.empty(2, dtype=torch.int64, device=dev)
+
+        def bare():
+            _build.launch("srs_key_bits", dev, keys.data_ptr(), 8, n,
+                          words.data_ptr(), None)
+
+        p1, k1 = (time_calls(lambda: cs.key_bits_plain(keys), reps),
+                  time_calls(lambda: cs.key_bits(keys), reps))
+        k2, p2 = (time_calls(lambda: cs.key_bits(keys), reps),
+                  time_calls(lambda: cs.key_bits_plain(keys), reps))
+        runs = [event_device_ms([bare]) for _ in range(SPREAD_RUNS)]
+        bound = roofline.bound_ms(8 * n, chip)
+        rows.append({
+            "name": "key_bits", "shape": f"int64 in [1, {K8_KEY_MAX}] n={n}",
+            "n": n, "ms": min(k1, k2), "ms_runs": [k1, k2],
+            "device_ms": statistics.median(runs), "device_ms_runs": runs,
+            "device_ms_from": "events", "plain_ms": min(p1, p2),
+            "plain_ms_runs": [p1, p2],
+            "library_ms": time_calls(lambda: torch.aminmax(keys), reps),
+            "library_call": "aminmax", "bound_ms": bound,
+            "bound_by": "bytes", "bytes": 8 * n,
+            "device_over_bound": statistics.median(runs) / bound})
+        del keys, words
+    return rows
+
+
+def host_read_timings(dev) -> dict:
+    """One read of K8's word as cuda_sort.bit_window makes it (K8's two
+    launches over one key, the 8-byte copy into pinned memory and the
+    host's wait) on an otherwise idle card: host clock over HOST_READS
+    reads a round, HOST_READ_ROUNDS rounds; the median us a read is what
+    cuda_sort.HOST_READ_S holds."""
+    import torch
+
+    from simd_radix_sort_tpu_torch.ops import cuda_sort as cs
+
+    keys = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def read():
+        return cs._wait_read(cs._queue_read(keys), dev)
+
+    for _ in range(HOST_READS):
+        read()
+    runs = []
+    for _ in range(HOST_READ_ROUNDS):
+        t0 = time.perf_counter()
+        for _ in range(HOST_READS):
+            read()
+        runs.append((time.perf_counter() - t0) / HOST_READS * 1e6)
+    return {"us": statistics.median(runs), "us_runs": runs,
+            "reads_a_round": HOST_READS}
+
+
 def kernel_rows(n: int, seed: int, reps: int, dev, hold) -> list:
     """The kernel table's rows of K2-K6 at n rows: each wrapper's call ms
     and its plain version's (timed plain, kernel, kernel, plain), one
@@ -661,7 +745,12 @@ def worker(n: int, seed: int, reps: int) -> dict:
     table = k1[:1] + kernel_rows(n, seed, reps, dev, _held)
     if importlib.util.find_spec("simd_radix_sort_tpu_torch.ops.cuda_scan"):
         table += k7_timings(seed, reps, dev, chip)
-    return {"table": table, "k1": k1,
+    host_read = None
+    if hasattr(importlib.import_module(
+            "simd_radix_sort_tpu_torch.ops.cuda_sort"), "key_bits"):
+        table += k8_timings(seed, reps, dev, chip)
+        host_read = host_read_timings(dev)
+    return {"table": table, "k1": k1, "host_read": host_read,
             "k23": k23_shape_timings(n, seed, reps, dev, _held),
             "card": subprocess.run(
                 ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -20,7 +20,7 @@ it).  Cases, lettered as the port's records name them:
   (q)-(w)  the distributed tier on an NCCL group of one against a Gloo
            group of the same rank on the CPU;
   then entry() and dryrun_multichip(1) against their CPU runs, and last
-  the check that every kernel K1-K7 launched on these paths (it reads the
+  the check that every kernel K1-K8 launched on these paths (it reads the
   launches of the tests before it, so it runs after them, in file order).
 """
 
@@ -34,7 +34,8 @@ from simd_radix_sort_tpu_torch import entry as E, methods
 from simd_radix_sort_tpu_torch import parallel as par
 from simd_radix_sort_tpu_torch.ops import (cuda_hist as ch,
                                            cuda_partition as cp,
-                                           cuda_scan as cs, filter as filt,
+                                           cuda_scan as cs,
+                                           cuda_sort as csort, filter as filt,
                                            hashagg, hashjoin, quick_sort,
                                            radix, topk)
 from simd_radix_sort_tpu_torch.utils import data as D, interop, transforms
@@ -48,7 +49,8 @@ SCATTER_N = 1 << 22  # rows of (i)
 SMALL_N = 1_000_000  # lineitems of (k)-(w); quick's blocked path runs there
 SEED = 42
 KERNELS = ("histogram", "minmax_hist16", "tiny_sort16", "fill_runs",
-           "partition_pass", "fill_runs_packed", "segmented_scan")
+           "partition_pass", "fill_runs_packed", "segmented_scan",
+           "key_bits")
 
 
 @pytest.fixture(scope="module")
@@ -71,9 +73,11 @@ def count_launches(fn, launched, device):
     ch.reset_launches()
     cp.reset_launches()
     cs.reset_launches()
+    csort.reset_launches()
     out = fn()
     fence(device)
-    launches = {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES}
+    launches = {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES,
+                "key_bits": csort.LAUNCHES["key_bits"]}
     for name, count in launches.items():
         launched[name] += count
     return out, launches
@@ -921,6 +925,6 @@ def test_dryrun_on_one_nccl_rank_matches_gloo(card, launched):
 
 
 def test_every_kernel_launched_on_the_main_paths(card, launched):
-    """Each of K1-K7 launched at least once by the cases above."""
+    """Each of K1-K8 launched at least once by the cases above."""
     idle = [name for name, count in launched.items() if count < 1]
     assert not idle, f"kernels never launched on the main path: {idle}"

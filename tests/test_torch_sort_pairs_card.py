@@ -1,8 +1,11 @@
 """cub's pair sort (csrc/sort_pairs*.cu, ops/cuda_sort.py) on the card
 against its plain version (`cuda_sort.sort_pairs_plain`, run on the same
 card tensors), and the xla engine's one-payload route through it against
-the same route on the CPU.  The library call has no CPU version, so every
-test here skips where there is no CUDA card.  On the card:
+the same route on the CPU; K8, the key bits that set cub's bit window
+(csrc/key_bits.cu), against its plain version, and sorts by narrow windows
+against the full-width `torch.sort` path.  The library call and K8 have no
+CPU version here, so every test here skips where there is no CUDA card.
+On the card:
 
     python -m pytest tests/test_torch_sort_pairs_card.py -q -p no:cacheprovider --noconftest
 
@@ -143,8 +146,17 @@ def test_entry_refuses_a_value_width_it_has_not(card):
     k = torch.zeros(4, dtype=torch.int32, device=card)
     with pytest.raises(RuntimeError, match="srs_sort_pairs"):
         _build.launch("srs_sort_pairs", card, 5, 3, 0, k.data_ptr(),
-                      k.data_ptr(), k.data_ptr(), k.data_ptr(), 4,
+                      k.data_ptr(), k.data_ptr(), k.data_ptr(), 4, 0, 32,
                       k.data_ptr(), 4)
+
+
+@pytest.mark.parametrize("begin,end", [(0, 0), (4, 3), (-1, 8), (0, 33)])
+def test_entry_refuses_a_window_outside_the_key(card, begin, end):
+    k = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="srs_sort_pairs"):
+        _build.launch("srs_sort_pairs", card, 5, 4, 0, k.data_ptr(),
+                      k.data_ptr(), k.data_ptr(), k.data_ptr(), 4, begin,
+                      end, k.data_ptr(), 4)
 
 
 def test_sorts_on_the_current_stream(card):
@@ -157,3 +169,196 @@ def test_sorts_on_the_current_stream(card):
     want = cuda_sort.sort_pairs_plain(k, v, True)
     for a, b in zip(got, want):
         same_bits(a, b)
+
+
+# K8 and the bit window
+
+BIG = 1 << 24
+RAGGED_VIEW = 1_000_003
+
+
+def _random_bytes(card, n, width, seed):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    return torch.randint(0, 256, (n, width), generator=g, device=card,
+                         dtype=torch.int64).to(torch.uint8)
+
+
+def k8_keys(card, key_dtype, kind, seed):
+    """Keys of `key_dtype` for K8: "full", random bits (the sample needs
+    every pass: the full read is skipped); "narrow", random low half of
+    the key's bytes under constant high bytes (a low nibble under a
+    constant one for 1-byte keys); "ragged", narrow keys as a view one
+    element into a larger tensor (its rows misaligned to 16 bytes), of
+    RAGGED_VIEW rows; "planted", equal keys but for two rows outside the
+    sample, one differing in the top bit and one in bit 0, in the same
+    misaligned view."""
+    td = common.torch_dtype(key_dtype)
+    w = np.dtype(key_dtype).itemsize
+    n = BIG if kind in ("full", "narrow") else RAGGED_VIEW + 1
+    b = _random_bytes(card, n, w, seed)
+    if kind != "full":
+        if w == 1:
+            b = (b & 0x0F) | 0xA0
+        else:
+            b[:, w // 2:] = torch.arange(w - w // 2, device=card).to(
+                torch.uint8) * 37 + 5
+    if kind == "planted":
+        b[:] = b[0]
+    keys = b.view(-1).view(td)
+    if kind in ("full", "narrow"):
+        return keys
+    keys = keys[1:]
+    if kind == "planted":
+        m = RAGGED_VIEW
+        step = (m - 1) / (cuda_sort.SAMPLE - 1)
+        mid = int(50 * step) + int(step / 2)  # between sample rows 50, 51
+        top = common.as_signed(keys)
+        top[mid] = top[0] ^ -(1 << (8 * w - 1))
+        top[m - 2] = top[0] ^ 1  # the row before the last, not sampled
+    return keys
+
+
+@pytest.mark.parametrize("kind", ["full", "narrow", "ragged", "planted"])
+@pytest.mark.parametrize("key_dtype", KEY_DTYPES, ids=str)
+def test_key_bits_matches_plain(card, key_dtype, kind):
+    keys = k8_keys(card, key_dtype, kind, seed=KEY_DTYPES.index(key_dtype))
+    cuda_sort.reset_launches()
+    host = torch.full((1,), -1, dtype=torch.int64, pin_memory=True)
+    got = cuda_sort.key_bits(keys, host)
+    torch.cuda.current_stream(card).synchronize()
+    assert cuda_sort.LAUNCHES["key_bits"] == 1
+    want = cuda_sort.key_bits_plain(keys)
+    assert got.device == keys.device
+    assert torch.equal(got, want)
+    assert int(host[0]) == int(want[1])  # the word copied behind the launches
+    w = keys.element_size()
+    if kind == "planted":
+        assert int(want[0]) == 0
+        assert int(want[1]) % (1 << 64) == (1 << (8 * w - 1)) | 1
+
+
+def _int_keys(lo, hi, dtype=torch.int64):
+    def make(card, n, g):
+        return torch.randint(lo, hi, (n,), generator=g, device=card,
+                             dtype=torch.int64).to(dtype)
+    return make
+
+
+def _float_keys(dtype):
+    """Floats in [1, 1.5]: one exponent, so the window is the mantissa."""
+    def make(card, n, g):
+        return (1 + 0.5 * torch.rand(n, generator=g, device=card,
+                                     dtype=torch.float64)).to(dtype)
+    return make
+
+
+# (label, keys(card, n, generator), ascending, the passes cub is given)
+WINDOW_CASES = [
+    ("int64 [1, 6e8]", _int_keys(1, 600_000_001), True, 4),
+    ("int64 [1, 6e8] desc", _int_keys(1, 600_000_001), False, 4),
+    ("int64 [-2^20, -1]", _int_keys(-(1 << 20), 0), True, 3),
+    ("int64 [2^40, 2^40 + 2^16)", _int_keys(1 << 40, (1 << 40) + (1 << 16)),
+     True, 2),
+    ("int64 even [0, 2^21)",
+     lambda card, n, g: _int_keys(0, 1 << 20)(card, n, g) * 2, True, 3),
+    ("int64 all equal", lambda card, n, g: torch.full(
+        (n,), -12345, dtype=torch.int64, device=card), True, 0),
+    ("int32 [-1000, 1000] (both signs)", _int_keys(-1000, 1001, torch.int32),
+     False, 4),
+    ("uint8 [0, 16)", _int_keys(0, 16, torch.uint8), True, 1),
+    ("uint16 [0, 256)", _int_keys(0, 256, torch.uint16), False, 1),
+    ("uint32 [0, 2^20)", _int_keys(0, 1 << 20, torch.uint32), True, 3),
+    ("uint64 [0, 2^33)", _int_keys(0, 1 << 33, torch.uint64), True, 5),
+    ("float32 [1, 1.5]", _float_keys(torch.float32), True, 3),
+    ("float32 [1, 1.5] desc", _float_keys(torch.float32), False, 3),
+    ("float64 [1, 1.5]", _float_keys(torch.float64), True, 7),
+]
+
+
+@pytest.mark.parametrize("label,make,ascending,want_passes", WINDOW_CASES,
+                         ids=[c[0] for c in WINDOW_CASES])
+def test_window_sort_matches_torch_sort(card, label, make, ascending,
+                                        want_passes):
+    """sort_arrays with one payload (cub by the keys' bit window) against
+    the same call with the payload twice (torch.sort of the full carrier
+    and the gathers), bit for bit, and the window counted."""
+    g = torch.Generator(device=card)
+    g.manual_seed(len(label))
+    keys = make(card, BIG, g)
+    vals = torch.randint(-2**62, 2**62, (BIG,), generator=g, device=card)
+    cuda_sort.reset_launches()
+    profiling.reset_counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        gk, (gv,) = xla_sort.sort_arrays(keys, (vals,), ascending=ascending)
+        torch.cuda.synchronize()
+    counted = dict(profiling.COUNTERS)
+    wk, (wv, _) = xla_sort.sort_arrays(keys, (vals, vals),
+                                       ascending=ascending, stable=True)
+    same_bits(gk, wk)
+    same_bits(gv, wv)
+    w = keys.element_size()
+    assert counted.get("xla.pairs_passes") == want_passes
+    assert counted.get("xla.pairs_narrowed", 0) == int(want_passes < w)
+    assert counted.get("host_syncs.xla.bits") == 1
+    assert cuda_sort.LAUNCHES["key_bits"] == 1
+    assert cuda_sort.LAUNCHES["sort_pairs"] == int(want_passes > 0)
+
+
+def _k8_full_read_us(keys):
+    """Device us of K8's full kernel (not the sample's) over one call."""
+    cuda_sort.key_bits(keys)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        cuda_sort.key_bits(keys)
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "key_bits_kernel<" in e.name]
+    assert us, "no K8 kernel in the trace"
+    return sum(us)
+
+
+def test_engages_on_order_keys_and_not_on_uniform_u64(card):
+    """TPC-H-like order keys (1-7 rows an order, keys below 6e8, a float64
+    value) narrow to 4 passes; Uniform u64 keys keep all 8, and there K8's
+    full kernel returns at once: its time is a small share of a full
+    read's at the same size."""
+    g = torch.Generator(device=card)
+    g.manual_seed(18)
+    orders = torch.randint(1, 600_000_001, (BIG // 4,), generator=g,
+                           device=card)
+    rows = torch.randint(1, 8, (BIG // 4,), generator=g, device=card)
+    lkeys = torch.repeat_interleave(orders, rows)
+    u64 = torch.randint(-2**63, 2**63 - 1, (lkeys.numel(),), generator=g,
+                        device=card).view(torch.uint64)
+    for keys, narrowed, want in ((lkeys, 1, 4), (u64, 0, 8)):
+        vals = torch.rand(keys.numel(), generator=g, device=card,
+                          dtype=torch.float64)
+        profiling.reset_counters()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            xla_sort.sort_arrays(keys, (vals,))
+            torch.cuda.synchronize()
+        assert profiling.COUNTERS["xla.pairs_narrowed"] == narrowed
+        assert profiling.COUNTERS["xla.pairs_passes"] == want
+    assert _k8_full_read_us(u64) < 0.2 * _k8_full_read_us(lkeys)
+
+
+def test_below_the_floor_reads_nothing(card):
+    n = cuda_sort.window_floor(16) - 1
+    keys = torch.arange(n, device=card)
+    cuda_sort.reset_launches()
+    profiling.reset_counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        gk, (gv,) = xla_sort.sort_arrays(keys.flip(0), (keys,))
+        torch.cuda.synchronize()
+    assert cuda_sort.LAUNCHES == {"sort_pairs": 1, "key_bits": 0}
+    assert "host_syncs.xla.bits" not in profiling.COUNTERS
+    assert profiling.COUNTERS["xla.pairs_passes"] == 8
+    same_bits(gk, keys)
+    same_bits(gv, keys.flip(0))
