@@ -151,22 +151,45 @@ def sort_packed(packed, key_dtype, ascending: bool = True,
         if esize < ksize:
             raise ValueError("element size smaller than key size")
 
-        keys = packed[:, :ksize].reshape(-1).view(
-            common.torch_dtype(key_dtype))
-        rest = packed[:, ksize:]
+        with profiling.span("srs.packed.keys"):
+            keys = packed[:, :ksize].reshape(-1).view(
+                common.torch_dtype(key_dtype))
+            rest = packed[:, ksize:]
+            pays = () if esize == ksize else (
+                torch.arange(n, dtype=torch.int64, device=dev),)
         kw = dict(ascending=ascending, stable=stable,
                   block_threshold=block_threshold, digit_bits=digit_bits)
-        pays = () if esize == ksize else (
-            torch.arange(n, dtype=torch.int64, device=dev),)
         with profiling.span("srs.sort.resolve"):
             m = methods.resolve(method, key_dtype,
                                 tuple(p.dtype for p in pays), n, device=dev)
         with profiling.span("srs.engine." + m.name):
             keys_out, pays_out = m.run(keys, pays, **kw)
-        if pays:
-            rest = rest.index_select(0, pays_out[0])
-        key_bytes = keys_out.contiguous().view(torch.uint8).reshape(n, ksize)
-        return torch.cat([key_bytes, rest], dim=1)
+        with profiling.span("srs.packed.rows"):
+            if pays:
+                rest = rest.index_select(0, pays_out[0])
+            key_bytes = keys_out.contiguous().view(torch.uint8).reshape(
+                n, ksize)
+            out = torch.cat([key_bytes, rest], dim=1)
+        # the key column is a view where the rows hold the key alone
+        profiling.count("packed.copy_bytes", packed_copy_bytes(
+            n, esize, ksize, keys.data_ptr() != packed.data_ptr()))
+        return out
+
+
+def packed_copy_bytes(n: int, esize: int, ksize: int,
+                      key_copied: bool) -> int:
+    """Bytes `sort_packed`'s own copies read and write for n rows of
+    `esize` bytes with `ksize` key bytes: the key column copied out of the
+    rows (n*ksize read and written; none where the slice is already one
+    run, as when the rows hold the key alone), and with payload bytes the
+    row index (8n written) and the gather of those bytes by the sorted
+    index (the index read, n*(esize - ksize) read and written); then the
+    output's assembly (every row read and written).  272n at esize = 64,
+    ksize = 8."""
+    total = 2 * n * esize + (2 * n * ksize if key_copied else 0)
+    if esize > ksize:
+        total += 8 * n + 8 * n + 2 * n * (esize - ksize)
+    return total
 
 
 def argsort(keys, ascending: bool = True, stable: bool = True, device=None):

@@ -39,6 +39,8 @@ SPANS = (
     "srs.sort",                    # ops/sort.sort and sort_packed, whole
     "srs.sort.stage",              # the inputs moved to the device
     "srs.sort.resolve",            # methods.resolve: the engine picked
+    "srs.packed.keys",             # sort_packed: the key column, row index
+    "srs.packed.rows",             # sort_packed: the row gather, assembly
     # the engine's run, named by the method resolved
     "srs.engine.xla", "srs.engine.radix", "srs.engine.rank",
     "srs.engine.count", "srs.engine.quick", "srs.engine.quickseq",
@@ -73,7 +75,8 @@ SPANS = (
 # (K5 and the widening count on every path, the radix engine's too);
 # hashagg.scan.*: K7's launches on the card and their bytes;
 # xla.pairs_*: the xla engine's calls that take cub's pair sort, the 8-bit
-# passes cub is given and the sorts given fewer than their key's width.
+# passes cub is given and the sorts given fewer than their key's width;
+# packed.*: bytes sort_packed's own copies read and write.
 COUNTER_NAMES = (
     "host_syncs.count.range",      # counting.sort_keys's min/max read
     "host_syncs.filter.fill",      # each scalar _fill sends to the device
@@ -86,6 +89,7 @@ COUNTER_NAMES = (
     "xla.pairs_calls",             # xla_sort.sort_arrays with one payload
     "xla.pairs_passes",            # cub's passes over their bit windows
     "xla.pairs_narrowed",          # those given fewer than the key's width
+    "packed.copy_bytes",           # ops/sort.packed_copy_bytes, a call
 )
 COUNTERS: collections.Counter = collections.Counter()
 

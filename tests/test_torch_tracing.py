@@ -5,6 +5,7 @@ count; and the benchmark's readers of them on synthetic traces."""
 
 import collections
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -23,6 +24,7 @@ PARENTS = {
     "srs.sort": None, "srs.compact": None, "srs.hashagg": None,
     "srs.join": None, "srs.join.semi": None, "srs.sort_multi": None,
     "srs.sort.stage": ("srs.sort",), "srs.sort.resolve": ("srs.sort",),
+    "srs.packed.keys": ("srs.sort",), "srs.packed.rows": ("srs.sort",),
     "srs.engine.count": ("srs.sort",), "srs.engine.xla": ("srs.sort",),
     "srs.count.u8": ("srs.engine.count",),
     "srs.count.tiny": ("srs.engine.count",),
@@ -51,9 +53,16 @@ def fresh_counters():
     profiling.reset_counters()
 
 
+def packed_rows(n: int, esize: int, seed: int = 3) -> torch.Tensor:
+    """n seeded (n, esize) uint8 rows, an 8-byte key in each one's lead."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, (n, esize), generator=g, dtype=torch.uint8)
+
+
 def calls_of_every_layer():
     """A sort through count (each branch), two through xla (one payload:
-    the pair sort; two: torch.sort and the gathers), a filter, a
+    the pair sort; two: torch.sort and the gathers), a combined-layout sort
+    of 64-byte rows, a filter, a
     group-aggregate with a float sum and one with two, a lookup join of one
     payload and one of two, a semi-join and a multi-column sort, on the
     CPU."""
@@ -67,6 +76,7 @@ def calls_of_every_layer():
     keys = torch.randint(0, 1 << 40, (4096,), generator=g)
     tsrs.sort(keys, torch.arange(4096), method="xla", device="cpu")
     tsrs.sort(keys, torch.arange(4096), keys % 3, method="xla", device="cpu")
+    tsrs.sort_packed(packed_rows(4096, 64), np.uint64, device="cpu")
     filt.filter_rows(lambda k: k % 3 == 0, keys, torch.arange(4096) % 7)
     hashagg.group_aggregate(keys % 5, torch.rand(4096, generator=g,
                                                  dtype=torch.float64),
@@ -92,7 +102,8 @@ def test_names_are_the_ports_own():
     assert {f"srs.engine.{m}" for m in methods.REGISTRY} <= \
         set(profiling.SPANS)
     bench = {WINDOW, CALL}
-    for conf in ("sort_thesis", "tpch_sf30", "tpch_sf100"):
+    for conf in ("sort_thesis", "tpch_sf30", "tpch_sf100",
+                 "sort_thesis_combined"):
         bench |= set(harness.load_file_module("configs", conf).SPANS)
     assert not bench & set(profiling.SPANS)
 
@@ -178,6 +189,51 @@ def test_compaction_bytes_by_hand():
     assert c.total() == 26 * n + 18 * n + 37 * n + 2
 
 
+def _span_times(prof, prefix="srs."):
+    spans = collections.defaultdict(list)
+    for e in prof.events():
+        if e.name.startswith(prefix):
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+    return spans
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+def test_packed_spans_wrap_the_copies_around_the_pair_sort(ascending,
+                                                          monkeypatch):
+    monkeypatch.setattr(cuda_sort, "HOST_READ_S", 0.0)
+    rows = packed_rows(5000, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tsrs.sort_packed(rows, np.uint64, ascending=ascending, device="cpu")
+    spans = _span_times(prof)
+    (whole,) = spans["srs.sort"]
+    (keys,), (pairs,), (out,) = (spans[n] for n in (
+        "srs.packed.keys", "srs.xla.pairs", "srs.packed.rows"))
+    assert whole[0] <= keys[0] and out[1] <= whole[1]
+    # the key column and index, then the engine's pair sort, then the rows
+    assert keys[1] <= pairs[0] and pairs[1] <= out[0]
+    (engine,) = spans["srs.engine.xla"]
+    assert keys[1] <= engine[0] and engine[1] <= out[0]
+    names = {e.name for e in prof.events()}
+    assert {"aten::index_select", "aten::cat"} <= names
+
+
+@pytest.mark.parametrize("n,esize,want", [
+    (5000, 64, 272 * 5000),   # key 16n, index 8n, gather 120n, cat 128n
+    (4099, 24, (16 + 8 + 8 + 32 + 48) * 4099),
+    (3000, 8, 16 * 3000),     # keys alone: the assembly alone
+])
+def test_packed_copy_bytes_counted_once_a_call(n, esize, want):
+    rows = packed_rows(n, esize)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for ascending in (True, False):
+            tsrs.sort_packed(rows, np.uint64, ascending=ascending,
+                             device="cpu")
+    assert profiling.COUNTERS["packed.copy_bytes"] == 2 * want
+    profiling.reset_counters()
+    tsrs.sort_packed(rows, np.uint64, device="cpu")  # no profiler
+    assert not profiling.COUNTERS
+
+
 def metric(name):
     return harness.load_file_module("metrics", name).read
 
@@ -247,7 +303,8 @@ def test_span_readers_read_nothing_where_there_is_nothing():
     names = ("engine.transform_ms", "kernels.gather_ms",
              "engine.idle_in_sort_us", "operators.scan_ms",
              "operators.join_build_ms", "operators.agg_compact_ms",
-             "operators.semi_join_ms", "operators.orderby_us")
+             "operators.semi_join_ms", "operators.orderby_us",
+             "kernels.packed_ms", "kernels.packed_gb", "packed_roofline")
     # no trace; a trace without the program's spans (a program that has
     # none); one without a call of the metric's kind
     bare = Trace([Event(WINDOW, "op", 0, 10), *launch(1, 2, 3, 1)], set())
@@ -257,6 +314,43 @@ def test_span_readers_read_nothing_where_there_is_nothing():
             assert metric(name)(run) is None, name
     run = harness.Run("w", [], 1.0, 0.0, 0, trace=sort_trace())
     assert metric("engine.transform_ms")(run) is None
+
+
+def test_packed_readers_by_hand(monkeypatch):
+    n = 10**4
+    monkeypatch.setattr(profiling, "COUNTERS", collections.Counter({
+        "packed.copy_bytes": 2 * 272 * n, "xla.pairs_calls": 2}))
+    facts = {"rows": n, "sort": [{"n": n, "row_bytes": 64}],
+             "packed": [{"n": n, "row_bytes": 64, "key_bytes": 8}]}
+    recs = [harness.Record(calls.Call(i, "sort_packed", {}), latency_ms=1.0,
+                           facts=facts, traced=i < 2) for i in range(3)]
+    ev = [Event(WINDOW, "op", 0, 100),
+          Event("sort", "op", 0, 45), Event("srs.sort", "op", 1, 44),
+          Event("srs.packed.keys", "op", 2, 5),
+          Event("srs.xla.pairs", "op", 6, 8),
+          Event("srs.packed.rows", "op", 9, 12),
+          Event("sort", "op", 50, 95), Event("srs.sort", "op", 51, 94),
+          Event("srs.packed.keys", "op", 52, 54),
+          Event("srs.xla.pairs", "op", 55, 57),
+          Event("srs.packed.rows", "op", 58, 64)]
+    # keys [3,7] and [53,55]; the pair sort [7,20] and [56,61] (not
+    # counted); rows [20,30] and [61,69]
+    ev += (launch(3, 3, 7, 1) + launch(7, 7, 20, 2) + launch(10, 20, 30, 3)
+           + launch(53, 53, 55, 4) + launch(56, 56, 61, 5)
+           + launch(61, 61, 69, 6))
+    run = harness.Run("w", recs, 1.0, 0.0, 0, trace=Trace(ev, {"sort"}))
+    assert metric("kernels.packed_ms")(run) == pytest.approx(0.012)
+    assert metric("kernels.packed_gb")(run) == pytest.approx(272 * n / 1e9)
+    # two calls' 2 * n * 64 bytes at 3.35 TB/s over 24 us; the whole call
+    # over the 27 + 15 us busy inside its `sort` span
+    assert metric("packed_roofline")(run) == pytest.approx(
+        100 * 2 * 2 * n * 64 / 3.35e12 / 24e-6)
+    assert metric("sort_roofline")(run) == pytest.approx(
+        100 * 2 * 2 * n * 64 / 3.35e12 / 42e-6)
+    # a program without the counter (the copies uncounted) reads nothing
+    monkeypatch.setattr(profiling, "COUNTERS",
+                        collections.Counter({"xla.pairs_calls": 2}))
+    assert metric("kernels.packed_gb")(run) is None
 
 
 def test_counter_readers_by_hand(monkeypatch):
