@@ -29,7 +29,7 @@ _CSRC = _PKG / "csrc"
 SORT_PAIRS_KEYS = ("u8", "i8", "u16", "i16", "u32", "i32", "u64", "i64")
 SOURCES = (_CSRC / "hist_kernels.cu", _CSRC / "partition_kernels.cu",
            _CSRC / "scan_kernels.cu", _CSRC / "key_bits.cu",
-           _CSRC / "sort_pairs.cu",
+           _CSRC / "row_gather.cu", _CSRC / "sort_pairs.cu",
            *(_CSRC / f"sort_pairs_{k}.cu" for k in SORT_PAIRS_KEYS))
 HEADERS = (_CSRC / "sort_pairs.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "srs_torch"
@@ -51,6 +51,7 @@ _SIGNATURES = {
     "srs_partition_scatter": (_P, _LL, _I, _P, _I, _PP, _PP, _PI, _P),
     "srs_segmented_scan": (_P, _LL, _I, _I, _I, _PP, _PP, _P, _P, _P),
     "srs_key_bits": (_P, _I, _LL, _P, _P, _P),
+    "srs_row_gather": (_P, _P, _P, _LL, _LL, _I, _P),
     "srs_sort_pairs_temp_bytes": (_I, _I, _I, _I, _I, _I, _PSZ, _P),
     "srs_sort_pairs": (_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _SZ, _P),
 }

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..utils import common, interop, profiling, transforms
-from . import xla_sort
+from . import cuda_rows, xla_sort
 
 
 def _stage(x, device: torch.device) -> torch.Tensor:
@@ -127,7 +127,9 @@ def sort_packed(packed, key_dtype, ascending: bool = True,
 
     The key is a view of the leading bytes.  When the rows carry payload
     bytes, the engine sorts the keys with their row index as the one
-    payload, and the payload bytes follow in one row gather."""
+    payload, and the output is the whole rows gathered by the sorted index
+    (`cuda_rows.row_gather`, K9 on the card): a row's key is its own
+    leading bytes, which every engine returns as they are."""
     from .. import methods
     from ..config import SortConfig
 
@@ -154,7 +156,6 @@ def sort_packed(packed, key_dtype, ascending: bool = True,
         with profiling.span("srs.packed.keys"):
             keys = packed[:, :ksize].reshape(-1).view(
                 common.torch_dtype(key_dtype))
-            rest = packed[:, ksize:]
             pays = () if esize == ksize else (
                 torch.arange(n, dtype=torch.int64, device=dev),)
         kw = dict(ascending=ascending, stable=stable,
@@ -166,10 +167,10 @@ def sort_packed(packed, key_dtype, ascending: bool = True,
             keys_out, pays_out = m.run(keys, pays, **kw)
         with profiling.span("srs.packed.rows"):
             if pays:
-                rest = rest.index_select(0, pays_out[0])
-            key_bytes = keys_out.contiguous().view(torch.uint8).reshape(
-                n, ksize)
-            out = torch.cat([key_bytes, rest], dim=1)
+                out = cuda_rows.row_gather(packed.contiguous(), pays_out[0])
+            else:  # the sorted keys are the rows
+                out = keys_out.contiguous().view(torch.uint8).reshape(
+                    n, ksize).clone()
         # the key column is a view where the rows hold the key alone
         profiling.count("packed.copy_bytes", packed_copy_bytes(
             n, esize, ksize, keys.data_ptr() != packed.data_ptr()))
@@ -181,14 +182,14 @@ def packed_copy_bytes(n: int, esize: int, ksize: int,
     """Bytes `sort_packed`'s own copies read and write for n rows of
     `esize` bytes with `ksize` key bytes: the key column copied out of the
     rows (n*ksize read and written; none where the slice is already one
-    run, as when the rows hold the key alone), and with payload bytes the
-    row index (8n written) and the gather of those bytes by the sorted
-    index (the index read, n*(esize - ksize) read and written); then the
-    output's assembly (every row read and written).  272n at esize = 64,
-    ksize = 8."""
+    run, as when the rows hold the key alone), with payload bytes the row
+    index (8n written) and its read by the row gather (8n), and the
+    output's assembly (every row read and written: the row gather, or the
+    sorted keys' copy where the rows hold the key alone).  160n at
+    esize = 64, ksize = 8."""
     total = 2 * n * esize + (2 * n * ksize if key_copied else 0)
     if esize > ksize:
-        total += 8 * n + 8 * n + 2 * n * (esize - ksize)
+        total += 8 * n + 8 * n
     return total
 
 

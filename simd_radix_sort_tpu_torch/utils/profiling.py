@@ -76,7 +76,9 @@ SPANS = (
 # hashagg.scan.*: K7's launches on the card and their bytes;
 # xla.pairs_*: the xla engine's calls that take cub's pair sort, the 8-bit
 # passes cub is given and the sorts given fewer than their key's width;
-# packed.*: bytes sort_packed's own copies read and write.
+# packed.*: bytes sort_packed's own copies read and write (every packed.*
+# counter is a byte count: kernels.packed_gb sums them); row_gather.*:
+# K9's launches and those in vectors narrower than 16 bytes.
 COUNTER_NAMES = (
     "host_syncs.count.range",      # counting.sort_keys's min/max read
     "host_syncs.filter.fill",      # each scalar _fill sends to the device
@@ -90,6 +92,8 @@ COUNTER_NAMES = (
     "xla.pairs_passes",            # cub's passes over their bit windows
     "xla.pairs_narrowed",          # those given fewer than the key's width
     "packed.copy_bytes",           # ops/sort.packed_copy_bytes, a call
+    "row_gather.calls",            # cuda_rows.row_gather's K9 launches
+    "row_gather.narrow_calls",     # those in vectors under 16 bytes
 )
 COUNTERS: collections.Counter = collections.Counter()
 

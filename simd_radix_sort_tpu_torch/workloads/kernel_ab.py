@@ -1,4 +1,4 @@
-"""Time the port's kernels K1-K8 on one card, and compare checkouts' kernels
+"""Time the port's kernels K1-K9 on one card, and compare checkouts' kernels
 in turns.
 
     python -m simd_radix_sort_tpu_torch.workloads.kernel_ab \\
@@ -11,9 +11,10 @@ order, one child process runs this file, from that root and with that
 root's package first on its path: it builds that checkout's kernels, then
 records
 
-  - the kernel table (`kernel_rows`): each of K1-K8 at the shape of its row
+  - the kernel table (`kernel_rows`): each of K1-K9 at the shape of its row
     (n rows; K7 at Q1's shape at TPC-H SF30 and at 10^6 rows; K8 at 10^8
-    and 6.0e8 int64 keys, where the checkout has it): the
+    and 6.0e8 int64 keys; K9 at n rows of 64 and 24 bytes; K7-K9 where
+    the checkout has them): the
     wrapper's call ms, the kernel's device ms, the plain version's ms, one
     library call's ms and the bound (the bytes the kernel must move at the
     card's memory rate);
@@ -25,10 +26,10 @@ records
     has K8.
 
 The outputs of K1-K6's timed launches are held against their plain
-versions, K7's calls against each other and K8's words against its plain
-version's.  The helpers come from this file and the kernels from the
-checkout, so a checkout must have K2's cuda_hist.STATS_WORDS interface; K7
-is timed where the checkout has ops/cuda_scan.py.
+versions, K7's calls against each other, and K8's words and K9's rows
+against their plain versions'.  The helpers come from this file and the
+kernels from the checkout, so a checkout must have K2's
+cuda_hist.STATS_WORDS interface.
 
 Then this process times each checkout's `minmax_hist16` and `tiny_sort16`
 calls at 2^22 Uniform int32 and int16 keys, the checkouts' packages
@@ -542,6 +543,67 @@ def k8_timings(seed: int, reps: int, dev, chip) -> list:
     return rows
 
 
+# K9, sort_packed's row gather, at 10^8 rows of the combined cell's 64 bytes
+# and of BASELINE.json config 3's 24 bytes, by a random permutation (the
+# sorted index of distinct random keys)
+K9_ROW_BYTES = (64, 24)
+
+
+def k9_timings(n: int, seed: int, reps: int, dev, chip) -> list:
+    """K9 at n rows of each of K9_ROW_BYTES: the wrapper's call ms (CUDA
+    events), the device ms of bare launches of its C entry
+    (event_device_ms), the plain version's ms, torch's index_select of
+    whole uint8 rows (the library's call, as the yardstick only) and the
+    bound, the index read and every row read and written once
+    (8n + 2 n row_bytes).  The kernel's rows are held against
+    the plain version's."""
+    import torch
+
+    from simd_radix_sort_tpu_torch.models import roofline
+    from simd_radix_sort_tpu_torch.ops import _build, cuda_rows as cr
+
+    rows_out = []
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    idx = torch.randperm(n, generator=g, device=dev)
+    for row_bytes in K9_ROW_BYTES:
+        rows = torch.randint(0, 256, (n, row_bytes), generator=g,
+                             device=dev, dtype=torch.uint8)
+        if not torch.equal(cr.row_gather(rows, idx),
+                           cr.row_gather_plain(rows, idx)):
+            raise AssertionError(f"row_gather {row_bytes} B n={n}: kernel "
+                                 "differs from its plain version")
+        out = torch.empty_like(rows)
+        width = cr.vector_width(row_bytes, rows.data_ptr(), out.data_ptr())
+
+        def bare():
+            _build.launch("srs_row_gather", dev, rows.data_ptr(),
+                          out.data_ptr(), idx.data_ptr(), n, row_bytes,
+                          width)
+
+        p1, k1 = (time_calls(lambda: cr.row_gather_plain(rows, idx), reps),
+                  time_calls(lambda: cr.row_gather(rows, idx), reps))
+        k2, p2 = (time_calls(lambda: cr.row_gather(rows, idx), reps),
+                  time_calls(lambda: cr.row_gather_plain(rows, idx), reps))
+        runs = [event_device_ms([bare]) for _ in range(SPREAD_RUNS)]
+        nbytes = 8 * n + 2 * n * row_bytes
+        bound = roofline.bound_ms(nbytes, chip)
+        rows_out.append({
+            "name": "row_gather", "shape": f"{row_bytes} B rows, random "
+            f"permutation n={n}", "n": n, "vector_bytes": width,
+            "ms": min(k1, k2), "ms_runs": [k1, k2],
+            "device_ms": statistics.median(runs), "device_ms_runs": runs,
+            "device_ms_from": "events", "plain_ms": min(p1, p2),
+            "plain_ms_runs": [p1, p2],
+            "library_ms": time_calls(
+                lambda: torch.index_select(rows, 0, idx), reps),
+            "library_call": "index_select of whole uint8 rows",
+            "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+            "device_over_bound": statistics.median(runs) / bound})
+        del rows, out
+    return rows_out
+
+
 def host_read_timings(dev) -> dict:
     """One read of K8's word as cuda_sort.bit_window makes it (K8's two
     launches over one key, the 8-byte copy into pinned memory and the
@@ -750,6 +812,8 @@ def worker(n: int, seed: int, reps: int) -> dict:
             "simd_radix_sort_tpu_torch.ops.cuda_sort"), "key_bits"):
         table += k8_timings(seed, reps, dev, chip)
         host_read = host_read_timings(dev)
+    if importlib.util.find_spec("simd_radix_sort_tpu_torch.ops.cuda_rows"):
+        table += k9_timings(n, seed, reps, dev, chip)
     return {"table": table, "k1": k1, "host_read": host_read,
             "k23": k23_shape_timings(n, seed, reps, dev, _held),
             "card": subprocess.run(

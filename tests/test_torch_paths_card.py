@@ -13,14 +13,15 @@ it).  Cases, lettered as the port's records name them:
   (a)-(e)  `sort(method="auto")`: u64 + u64 on `xla`; uint8, int32 Zero and
            ZeroOne, int32 [-500, 500), int16 Gaussian descending on `count`;
   (f)-(j)  the radix movers and K1 + K6, equal byte for byte to the stable
-           comparison sort;
+           comparison sort; (j2) `sort_packed` of u64 + u64 rows, both
+           directions, through cub's pair sort and K9;
   (k)-(p)  the operators and the quick and rank engines over a TPC-H-shaped
            table, on the CPU and on the card, which must agree (integers
            exactly, float sums to 1e-12);
   (q)-(w)  the distributed tier on an NCCL group of one against a Gloo
            group of the same rank on the CPU;
   then entry() and dryrun_multichip(1) against their CPU runs, and last
-  the check that every kernel K1-K8 launched on these paths (it reads the
+  the check that every kernel K1-K9 launched on these paths (it reads the
   launches of the tests before it, so it runs after them, in file order).
 """
 
@@ -34,6 +35,7 @@ from simd_radix_sort_tpu_torch import entry as E, methods
 from simd_radix_sort_tpu_torch import parallel as par
 from simd_radix_sort_tpu_torch.ops import (cuda_hist as ch,
                                            cuda_partition as cp,
+                                           cuda_rows as crows,
                                            cuda_scan as cs,
                                            cuda_sort as csort, filter as filt,
                                            hashagg, hashjoin, quick_sort,
@@ -50,7 +52,7 @@ SMALL_N = 1_000_000  # lineitems of (k)-(w); quick's blocked path runs there
 SEED = 42
 KERNELS = ("histogram", "minmax_hist16", "tiny_sort16", "fill_runs",
            "partition_pass", "fill_runs_packed", "segmented_scan",
-           "key_bits")
+           "key_bits", "row_gather")
 
 
 @pytest.fixture(scope="module")
@@ -74,10 +76,11 @@ def count_launches(fn, launched, device):
     cp.reset_launches()
     cs.reset_launches()
     csort.reset_launches()
+    crows.reset_launches()
     out = fn()
     fence(device)
     launches = {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES,
-                "key_bits": csort.LAUNCHES["key_bits"]}
+                "key_bits": csort.LAUNCHES["key_bits"], **crows.LAUNCHES}
     for name, count in launches.items():
         launched[name] += count
     return out, launches
@@ -232,6 +235,24 @@ def test_j_uint8_through_k1_and_k6(card, launched):
         launched, card)
     equal_to_stable_sort("j", out, kj, (), True)
     assert launches["histogram"] == launches["fill_runs_packed"] == 1
+
+
+@pytest.mark.parametrize("asc", [True, False])
+def test_j2_sort_packed_assembles_rows_by_k9(card, u64_pair, launched, asc):
+    """The combined layout: 16-byte rows of the u64 key and its payload,
+    sorted whole by `sort_packed`, equal to the pair sort's columns."""
+    k64, p64, _ = u64_pair
+    packed = torch.cat([signed(k64).view(torch.uint8).view(N, 8),
+                        signed(p64).view(torch.uint8).view(N, 8)], dim=1)
+    (out,), launches = count_launches(
+        lambda: (srs.sort_packed(packed, np.uint64, ascending=asc),),
+        launched, card)
+    keys, pay = srs.sort(k64, p64, ascending=asc)
+    assert torch.equal(out[:, :8].contiguous().view(torch.int64).view(-1),
+                       signed(keys))
+    assert torch.equal(out[:, 8:].contiguous().view(torch.int64).view(-1),
+                       signed(pay))
+    assert launches["row_gather"] == 1 and launches["key_bits"] == 1
 
 
 # ---- (k)-(p): the operators and the quick and rank engines -----------------
@@ -925,6 +946,6 @@ def test_dryrun_on_one_nccl_rank_matches_gloo(card, launched):
 
 
 def test_every_kernel_launched_on_the_main_paths(card, launched):
-    """Each of K1-K8 launched at least once by the cases above."""
+    """Each of K1-K9 launched at least once by the cases above."""
     idle = [name for name, count in launched.items() if count < 1]
     assert not idle, f"kernels never launched on the main path: {idle}"

@@ -178,12 +178,12 @@ def test_control_is_not_correct():
 
 
 @pytest.mark.parametrize("n,esize,ksize,copied,want", [
-    # key column 2nk, index 8n, gather 8n + 2n(e - k), assembly 2ne
-    (10, 64, 8, True, 2720),
-    (1000, 64, 8, True, 272_000),
-    (7, 24, 8, True, 7 * (16 + 8 + 8 + 32 + 48)),
+    # key column 2nk, index 8n, the row gather 8n + 2ne
+    (10, 64, 8, True, 1600),
+    (1000, 64, 8, True, 160_000),
+    (7, 24, 8, True, 7 * (16 + 8 + 8 + 48)),
     (9, 8, 8, False, 9 * 16),   # keys alone: the key column is a view
-    (5, 6, 2, True, 5 * (4 + 8 + 8 + 8 + 12)),
+    (5, 6, 2, True, 5 * (4 + 8 + 8 + 12)),
     (0, 64, 8, True, 0),
 ])
 def test_copy_bytes_by_hand(n, esize, ksize, copied, want):
@@ -211,7 +211,7 @@ def test_cell_runs_on_the_cpu(traced):
     if traced:
         # no device events on the CPU: the counter alone has a reading
         got = res["metrics"]["kernels.packed_gb"]["value"]
-        assert got == pytest.approx(272 * n / 1e9)
+        assert got == pytest.approx(160 * n / 1e9)
     else:
         assert set(res["metrics"]) >= {"rows_per_s", "p95_ms", "setup_s"}
 

@@ -1,8 +1,9 @@
 """The combined layout on the card: `sort_packed` of 2^24 64-byte rows
 (a uint64 key and seven uint64 fields, made by the `sort_thesis_combined`
 configuration's generator) against the plain reference in both
-directions, and its two spans and counter in a profiled call.  Every test
-here skips where there is no CUDA card.  On the card:
+directions, its two spans and counter in a profiled call, and its one
+K9 launch a call, in 16-byte vectors.  Every test here skips where there
+is no CUDA card.  On the card:
 
     python -m pytest tests/test_torch_sort_combined_card.py -q -p no:cacheprovider --noconftest
 """
@@ -16,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import simd_radix_sort_tpu_torch as tsrs
 from benchmark import calls, harness, program_spans, trace
+from simd_radix_sort_tpu_torch.ops import cuda_rows
 from simd_radix_sort_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.card
@@ -76,6 +78,25 @@ def test_spans_and_counter_in_a_profiled_call(state):
         "srs.packed.keys", "srs.packed.rows"))
     (pairs,) = program_spans.spans(tr, "srs.xla.pairs")
     assert keys[1] <= pairs[0] and pairs[1] <= rows_span[0]
-    assert profiling.COUNTERS["packed.copy_bytes"] == 272 * N
+    assert profiling.COUNTERS["packed.copy_bytes"] == 160 * N
     profiling.reset_counters()
     assert out.shape == rows.shape
+
+
+def test_one_row_gather_a_call(state):
+    st, _ = state
+    rows = st.tables[NAME, 0]
+    cuda_rows.reset_launches()
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        outs = [tsrs.sort_packed(rows, np.uint64, ascending=asc)
+                for asc in (True, False)]
+        torch.cuda.synchronize()
+    assert cuda_rows.LAUNCHES["row_gather"] == 2
+    assert profiling.COUNTERS["row_gather.calls"] == 2
+    assert profiling.COUNTERS["row_gather.narrow_calls"] == 0
+    assert profiling.COUNTERS["packed.copy_bytes"] == 2 * 160 * N
+    profiling.reset_counters()
+    # the two directions are each other's rows reversed: equal keys carry
+    # equal rows, so the order of ties does not show
+    assert torch.equal(outs[0], outs[1].flip(0))
