@@ -68,6 +68,8 @@ SPANS = (
     "srs.join.probe",              # lookup_join's searches and gathers
     "srs.join.semi",               # hashjoin.semi_join, whole
     "srs.sort_multi",              # ops/sort.sort_multi, whole
+    "srs.sort_multi.keys",         # its pass over one key column
+    "srs.sort_multi.gather",       # its output columns' gathers
 )
 # The port's counters, in COUNTERS.  host_syncs.*: each time the host
 # waits for a value of the device at that site; compaction.*: bytes read
@@ -78,7 +80,8 @@ SPANS = (
 # passes cub is given and the sorts given fewer than their key's width;
 # packed.*: bytes sort_packed's own copies read and write (every packed.*
 # counter is a byte count: kernels.packed_gb sums them); row_gather.*:
-# K9's launches and those in vectors narrower than 16 bytes.
+# K9's launches and those in vectors narrower than 16 bytes;
+# sort_multi.*: bytes sort_multi's output gathers read and write.
 COUNTER_NAMES = (
     "host_syncs.count.range",      # counting.sort_keys's min/max read
     "host_syncs.filter.fill",      # each scalar _fill sends to the device
@@ -94,6 +97,7 @@ COUNTER_NAMES = (
     "packed.copy_bytes",           # ops/sort.packed_copy_bytes, a call
     "row_gather.calls",            # cuda_rows.row_gather's K9 launches
     "row_gather.narrow_calls",     # those in vectors under 16 bytes
+    "sort_multi.gather_bytes",     # ops/sort.multi_gather_bytes, a call
 )
 COUNTERS: collections.Counter = collections.Counter()
 

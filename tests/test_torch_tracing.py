@@ -17,6 +17,7 @@ from simd_radix_sort_tpu_torch import methods
 from simd_radix_sort_tpu_torch.ops import (cuda_partition, cuda_sort, hashagg,
                                            hashjoin)
 from simd_radix_sort_tpu_torch.ops import filter as filt
+from simd_radix_sort_tpu_torch.ops import sort as sort_ops
 from simd_radix_sort_tpu_torch.utils import profiling
 
 # the spans each span must lie inside, in the calls below; None: top level
@@ -32,7 +33,8 @@ PARENTS = {
     "srs.count.k1024": ("srs.engine.count",),
     "srs.count.fallback": ("srs.engine.count",),
     "srs.transform": ("srs.engine.count", "srs.engine.xla", "srs.hashagg",
-                      "srs.join.build", "srs.join.probe", "srs.sort_multi"),
+                      "srs.join.build", "srs.join.probe",
+                      "srs.sort_multi.keys"),
     "srs.xla.sort": ("srs.engine.xla", "srs.hashagg.sort", "srs.join.build"),
     "srs.xla.gather": ("srs.engine.xla", "srs.hashagg.sort",
                        "srs.join.build"),
@@ -43,6 +45,8 @@ PARENTS = {
     "srs.hashagg.sort": ("srs.hashagg",), "srs.hashagg.scan": ("srs.hashagg",),
     "srs.hashagg.compact": ("srs.hashagg",),
     "srs.join.build": ("srs.join",), "srs.join.probe": ("srs.join",),
+    "srs.sort_multi.keys": ("srs.sort_multi",),
+    "srs.sort_multi.gather": ("srs.sort_multi",),
 }
 
 
@@ -103,7 +107,7 @@ def test_names_are_the_ports_own():
         set(profiling.SPANS)
     bench = {WINDOW, CALL}
     for conf in ("sort_thesis", "tpch_sf30", "tpch_sf100",
-                 "sort_thesis_combined"):
+                 "sort_thesis_combined", "tpch_sf30_lineitem"):
         bench |= set(harness.load_file_module("configs", conf).SPANS)
     assert not bench & set(profiling.SPANS)
 
@@ -235,6 +239,121 @@ def test_packed_copy_bytes_counted_once_a_call(n, esize, want):
     assert not profiling.COUNTERS
 
 
+def lineitem_like(n: int, seed: int = 5):
+    """Three key columns with ties (int32, int64, int32) and four payloads
+    of 1, 4, 8 and 8 bytes, seeded."""
+    g = torch.Generator().manual_seed(seed)
+    keys = (torch.randint(0, 50, (n,), generator=g, dtype=torch.int32),
+            torch.randint(0, 300, (n,), generator=g),
+            torch.randint(1, 8, (n,), generator=g, dtype=torch.int32))
+    pays = (torch.randint(0, 4, (n,), generator=g, dtype=torch.int8),
+            torch.arange(n, dtype=torch.int32), torch.arange(n),
+            torch.rand(n, generator=g, dtype=torch.float64))
+    return keys, pays
+
+
+@pytest.mark.parametrize("nkeys", [1, 2, 3])
+def test_sort_multi_spans_wrap_the_key_passes_then_the_gathers(nkeys):
+    keys, pays = lineitem_like(3000)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tsrs.sort_multi(keys[:nkeys], *pays,
+                        ascending=(True, False, True)[:nkeys], device="cpu")
+    spans = _span_times(prof)
+    (whole,) = spans["srs.sort_multi"]
+    passes, (gather,) = spans["srs.sort_multi.keys"], \
+        spans["srs.sort_multi.gather"]
+    assert len(passes) == nkeys
+    for s, e in passes + [gather]:
+        assert whole[0] <= s and e <= whole[1]
+    # one pass a key column, one after another, then the gathers
+    for (_, e), (s, _) in zip(passes, passes[1:] + [gather]):
+        assert e <= s
+    # one gather an output column, all inside the gather span; the sorts
+    # inside the passes
+    picks = [e.time_range for e in prof.events()
+             if e.name == "aten::index_select"
+             and gather[0] <= e.time_range.start <= gather[1]]
+    assert len(picks) == nkeys + len(pays)
+    sorts = [e.time_range for e in prof.events() if e.name == "aten::sort"]
+    assert sorts and all(any(s <= r.start and r.end <= e for s, e in passes)
+                         for r in sorts)
+
+
+@pytest.mark.parametrize("n,nkeys", [(3000, 3), (4099, 1), (1, 2)])
+def test_sort_multi_gather_bytes_counted_once_a_call(n, nkeys):
+    keys, pays = lineitem_like(n)
+    widths = [t.element_size() for t in keys[:nkeys] + pays]
+    with profile(activities=[ProfilerActivity.CPU]):
+        for up in (True, False):
+            tsrs.sort_multi(keys[:nkeys], *pays, ascending=up, device="cpu")
+    # index 8n and the column read and written, a column: n (8c + 2 sum w)
+    want = n * (8 * len(widths) + 2 * sum(widths))
+    assert sort_ops.multi_gather_bytes(n, widths) == want
+    assert profiling.COUNTERS == {"sort_multi.gather_bytes": 2 * want}
+    profiling.reset_counters()
+    tsrs.sort_multi(keys[:nkeys], *pays, device="cpu")  # no profiler
+    assert not profiling.COUNTERS
+
+
+def orderby_run(spans=True):
+    """Two traced ORDER BY calls of 10^4 84-byte rows (one untraced); with
+    `spans`, the port's inner spans, else `srs.sort_multi` alone."""
+    n = 10**4
+    facts = {"rows": n, "orderby": [{"n": n, "row_bytes": 84}]}
+    recs = [harness.Record(calls.Call(i, "orderby", {}), latency_ms=1.0,
+                           facts=facts, traced=i < 2) for i in range(3)]
+    ev = [Event(WINDOW, "op", 0, 100),
+          Event("orderby", "op", 0, 45), Event("srs.sort_multi", "op", 1, 44),
+          Event("orderby", "op", 50, 95),
+          Event("srs.sort_multi", "op", 51, 94)]
+    if spans:
+        ev += [Event("srs.sort_multi.keys", "op", 2, 4),
+               Event("srs.sort_multi.keys", "op", 5, 8),
+               Event("srs.sort_multi.gather", "op", 9, 12),
+               Event("srs.sort_multi.keys", "op", 52, 55),
+               Event("srs.sort_multi.gather", "op", 58, 64)]
+    # keys [3,7] [6,15] and [53,60]; gathers [15,30] and [60,69]; a launch
+    # at 56, between the spans, [60,61] inside `srs.sort_multi` alone
+    ev += (launch(3, 3, 7, 1) + launch(6, 6, 15, 2) + launch(10, 15, 30, 3)
+           + launch(53, 53, 60, 4) + launch(56, 60, 61, 5)
+           + launch(59, 61, 69, 6))
+    return harness.Run("w", recs, 1.0, 0.0, 0,
+                       trace=Trace(ev, {"orderby"}))
+
+
+def test_orderby_readers_by_hand(monkeypatch):
+    n = 10**4
+    monkeypatch.setattr(profiling, "COUNTERS", collections.Counter({
+        "sort_multi.gather_bytes": 2 * 296 * n, "xla.pairs_calls": 1}))
+    run = orderby_run()
+    # busy from the passes: [3,15] + [53,60] = 19 us over 2 calls
+    assert metric("operators.orderby_keys_ms")(run) == pytest.approx(0.0095)
+    # from the gathers: [15,30] + [61,69] = 23 us over 2 calls
+    assert metric("operators.orderby_gather_ms")(run) == pytest.approx(
+        0.0115)
+    assert metric("operators.orderby_gb")(run) == pytest.approx(
+        296 * n / 1e9)
+    # two calls' 2 * n * 84 bytes at 3.35 TB/s over [3,30] + [53,69]
+    assert metric("orderby_roofline")(run) == pytest.approx(
+        100 * 2 * 2 * n * 84 / 3.35e12 / 43e-6)
+
+
+def test_orderby_readers_silent_without_the_spans(monkeypatch):
+    # a program with `srs.sort_multi` alone and no counter of its gathers
+    monkeypatch.setattr(profiling, "COUNTERS",
+                        collections.Counter({"xla.pairs_calls": 1}))
+    run = orderby_run(spans=False)
+    for name in ("operators.orderby_keys_ms", "operators.orderby_gather_ms",
+                 "operators.orderby_gb"):
+        assert metric(name)(run) is None, name
+    # the whole call's share reads what the outer span holds
+    assert metric("orderby_roofline")(run) == pytest.approx(
+        100 * 2 * 2 * 10**4 * 84 / 3.35e12 / 43e-6)
+    # untraced: nothing
+    run.trace = None
+    assert metric("orderby_roofline")(run) is None
+
+
 def metric(name):
     return harness.load_file_module("metrics", name).read
 
@@ -305,7 +424,9 @@ def test_span_readers_read_nothing_where_there_is_nothing():
              "engine.idle_in_sort_us", "operators.scan_ms",
              "operators.join_build_ms", "operators.agg_compact_ms",
              "operators.semi_join_ms", "operators.orderby_us",
-             "kernels.packed_ms", "kernels.packed_gb", "packed_roofline")
+             "kernels.packed_ms", "kernels.packed_gb", "packed_roofline",
+             "operators.orderby_keys_ms", "operators.orderby_gather_ms",
+             "operators.orderby_gb", "orderby_roofline")
     # no trace; a trace without the program's spans (a program that has
     # none); one without a call of the metric's kind
     bare = Trace([Event(WINDOW, "op", 0, 10), *launch(1, 2, 3, 1)], set())
