@@ -29,7 +29,8 @@ _CSRC = _PKG / "csrc"
 SORT_PAIRS_KEYS = ("u8", "i8", "u16", "i16", "u32", "i32", "u64", "i64")
 SOURCES = (_CSRC / "hist_kernels.cu", _CSRC / "partition_kernels.cu",
            _CSRC / "scan_kernels.cu", _CSRC / "key_bits.cu",
-           _CSRC / "row_gather.cu", _CSRC / "sort_pairs.cu",
+           _CSRC / "row_gather.cu", _CSRC / "column_gather.cu",
+           _CSRC / "sort_pairs.cu",
            *(_CSRC / f"sort_pairs_{k}.cu" for k in SORT_PAIRS_KEYS))
 HEADERS = (_CSRC / "sort_pairs.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "srs_torch"
@@ -40,6 +41,7 @@ _P, _I, _U, _LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                    ctypes.c_longlong)
 _PP, _PI = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 _SZ, _PSZ = ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t)
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 # name -> argtypes; every entry returns a cudaError_t as int
 _SIGNATURES = {
     "srs_histogram": (_P, _I, _LL, _U, _I, _P, _P),
@@ -52,6 +54,8 @@ _SIGNATURES = {
     "srs_segmented_scan": (_P, _LL, _I, _I, _I, _PP, _PP, _P, _P, _P),
     "srs_key_bits": (_P, _I, _LL, _P, _P, _P),
     "srs_row_gather": (_P, _P, _P, _LL, _LL, _I, _P),
+    "srs_column_pack": (_PP, _PLL, _PI, _PI, _I, _P, _I, _LL, _P),
+    "srs_column_gather": (_P, _LL, _I, _P, _I, _LL, _PP, _PI, _PI, _I, _P),
     "srs_sort_pairs_temp_bytes": (_I, _I, _I, _I, _I, _I, _PSZ, _P),
     "srs_sort_pairs": (_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _SZ, _P),
 }

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..utils import common, interop, profiling, transforms
-from . import cuda_rows, xla_sort
+from . import cuda_columns, cuda_rows, xla_sort
 
 
 def _stage(x, device: torch.device) -> torch.Tensor:
@@ -214,8 +214,13 @@ def sort_multi(keys_columns, *payloads, ascending=True, stable: bool = False,
 
     Cost: one pass a key column (its carrier, reordered by the permutation
     so far, one stable `torch.argsort` over the key's full width, and the
-    permutation composed with it), then one gather an output column, key
-    columns and payloads alike (`multi_gather_bytes`)."""
+    permutation composed with it), then the output columns, key columns and
+    payloads alike, gathered by the permutation in groups of up to 32 bytes
+    a row (`cuda_columns.gather_columns`, K10 on the card: a pack and a
+    gather a group), the permutation narrowed to int32 first where it fits
+    (`multi_gather_bytes`).  The last pass's carrier and sort are dropped
+    before the gathers, which stay within the bytes the call held at its
+    peak before they were grouped (`cuda_columns.plan_groups`)."""
     keys_columns = tuple(keys_columns)
     if not keys_columns:
         raise ValueError("sort_multi needs at least one key column")
@@ -241,20 +246,32 @@ def sort_multi(keys_columns, *payloads, ascending=True, stable: bool = False,
                     c = c.index_select(0, perm)
                 order = torch.argsort(c, stable=True)
                 perm = order if perm is None else perm.index_select(0, order)
+        del c, order  # the last key pass's: the gathers need perm alone
         with profiling.span("srs.sort_multi.gather"):
-            out = (tuple(xla_sort.gather(col, perm) for col in cols),
-                   tuple(xla_sort.gather(p, perm) for p in pays))
+            idx = cuda_columns.narrow_index(perm)
+            del perm
+            out = cuda_columns.gather_columns(cols + pays, idx)
+            del idx
         profiling.count("sort_multi.gather_bytes", multi_gather_bytes(
             n, [t.element_size() for t in cols + pays]))
-        return out
+        return out[:len(cols)], out[len(cols):]
 
 
 def multi_gather_bytes(n: int, widths) -> int:
-    """Bytes `sort_multi`'s output gathers read and write for n rows of
-    output columns of `widths` bytes: the sorted index read once a column
-    (8n) and each column read and written once (2n·w).  296n for TPC-H's
-    16 lineitem columns (84 bytes a row)."""
-    return n * (8 * len(widths) + 2 * sum(widths))
+    """Bytes `sort_multi`'s output assembly reads and writes for n rows of
+    output columns of `widths` bytes, the first key's first: the sorted
+    index narrowed to int32 (12n, where it fits), then each group of
+    `cuda_columns.plan_groups` packed (its columns read, its staged rows
+    written) and gathered (the index, a staged row a row, its columns
+    written).  364n for TPC-H's 16 lineitem columns (84 bytes a row)."""
+    ib = cuda_columns.index_bytes(n)
+    total = 12 * n if ib == 4 else 0
+    for g in cuda_columns.plan_groups(n, widths):
+        w = sum(widths[i] for i in g.columns)
+        if g.staged:
+            total += n * (w + g.row_bytes)
+        total += n * (ib + g.row_bytes + w)
+    return total
 
 
 def sort_batched(keys, *payloads, ascending: bool = True,

@@ -69,7 +69,7 @@ SPANS = (
     "srs.join.semi",               # hashjoin.semi_join, whole
     "srs.sort_multi",              # ops/sort.sort_multi, whole
     "srs.sort_multi.keys",         # its pass over one key column
-    "srs.sort_multi.gather",       # its output columns' gathers
+    "srs.sort_multi.gather",       # its output columns' assembly (K10)
 )
 # The port's counters, in COUNTERS.  host_syncs.*: each time the host
 # waits for a value of the device at that site; compaction.*: bytes read
@@ -81,7 +81,9 @@ SPANS = (
 # packed.*: bytes sort_packed's own copies read and write (every packed.*
 # counter is a byte count: kernels.packed_gb sums them); row_gather.*:
 # K9's launches and those in vectors narrower than 16 bytes;
-# sort_multi.*: bytes sort_multi's output gathers read and write.
+# column_gather.*: the groups cuda_columns.gather_columns gathers (one K10
+# gather a group on the card) and the bytes of their staged rows;
+# sort_multi.*: bytes sort_multi's output assembly reads and writes.
 COUNTER_NAMES = (
     "host_syncs.count.range",      # counting.sort_keys's min/max read
     "host_syncs.filter.fill",      # each scalar _fill sends to the device
@@ -97,6 +99,8 @@ COUNTER_NAMES = (
     "packed.copy_bytes",           # ops/sort.packed_copy_bytes, a call
     "row_gather.calls",            # cuda_rows.row_gather's K9 launches
     "row_gather.narrow_calls",     # those in vectors under 16 bytes
+    "column_gather.groups",        # cuda_columns.gather_columns's groups
+    "column_gather.staged_bytes",  # their staged rows' bytes
     "sort_multi.gather_bytes",     # ops/sort.multi_gather_bytes, a call
 )
 COUNTERS: collections.Counter = collections.Counter()

@@ -1,4 +1,4 @@
-"""Time the port's kernels K1-K9 on one card, and compare checkouts' kernels
+"""Time the port's kernels K1-K10 on one card, and compare checkouts' kernels
 in turns.
 
     python -m simd_radix_sort_tpu_torch.workloads.kernel_ab \\
@@ -11,10 +11,11 @@ order, one child process runs this file, from that root and with that
 root's package first on its path: it builds that checkout's kernels, then
 records
 
-  - the kernel table (`kernel_rows`): each of K1-K9 at the shape of its row
-    (n rows; K7 at Q1's shape at TPC-H SF30 and at 10^6 rows; K8 at 10^8
-    and 6.0e8 int64 keys; K9 at n rows of 64 and 24 bytes; K7-K9 where
-    the checkout has them): the
+  - the kernel table (`kernel_rows`): each of K1-K10 at the shape of its
+    row (n rows; K7 at Q1's shape at TPC-H SF30 and at 10^6 rows; K8 at
+    10^8 and 6.0e8 int64 keys; K9 at n rows of 64 and 24 bytes; K10's pack
+    and gather at n rows of TPC-H lineitem's 16 columns; K7-K10 where the
+    checkout has them): the
     wrapper's call ms, the kernel's device ms, the plain version's ms, one
     library call's ms and the bound (the bytes the kernel must move at the
     card's memory rate);
@@ -26,10 +27,10 @@ records
     has K8.
 
 The outputs of K1-K6's timed launches are held against their plain
-versions, K7's calls against each other, and K8's words and K9's rows
-against their plain versions'.  The helpers come from this file and the
-kernels from the checkout, so a checkout must have K2's
-cuda_hist.STATS_WORDS interface.
+versions, K7's calls against each other, and K8's words, K9's rows and
+K10's staged rows and columns against their plain versions'.  The helpers
+come from this file and the kernels from the checkout, so a checkout must
+have K2's cuda_hist.STATS_WORDS interface.
 
 Then this process times each checkout's `minmax_hist16` and `tiny_sort16`
 calls at 2^22 Uniform int32 and int16 keys, the checkouts' packages
@@ -604,6 +605,117 @@ def k9_timings(n: int, seed: int, reps: int, dev, chip) -> list:
     return rows_out
 
 
+# K10, sort_multi's output assembly, at 10^8 rows of TPC-H lineitem's 16
+# columns (84 bytes a row) in the ORDER BY cell's order, by a random
+# permutation: the groups of cuda_columns.plan_groups (32, 32, 16, 4 bytes)
+K10_DTYPES = ("int32", "int64", "int32", "int64", "int64", "float64",
+              "float64", "float64", "float64", "int8", "int8", "int32",
+              "int32", "int8", "int8", "int64")
+
+
+def k10_timings(n: int, seed: int, reps: int, dev, chip) -> list:
+    """K10 at n rows of K10_DTYPES, its two entries apart, each row over
+    all the groups: the wrappers' call ms (CUDA events), the device ms of
+    bare launches of the C entries (event_device_ms), the plain versions'
+    ms, the 16 per-column index_select calls the assembly replaced (the
+    library's calls, as the yardstick only) and the bound: the pack reads
+    each column and writes each staged row once (n·(Σw + Σs)), the gather
+    reads the int32 index and a staged row and writes each column once a
+    group (n·(4 + s + w) a group).  The kernels' staged rows and columns
+    are held against the plain versions'."""
+    import torch
+
+    from simd_radix_sort_tpu_torch.models import roofline
+    from simd_radix_sort_tpu_torch.ops import (_build, cuda_columns as cc,
+                                               xla_sort)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    cols = []
+    for name in K10_DTYPES:
+        d = getattr(torch, name)
+        w = torch.empty((), dtype=d).element_size()
+        cols.append(torch.randint(0, 256, (n * w,), generator=g,
+                                  dtype=torch.uint8, device=dev).view(d))
+    perm = torch.randperm(n, generator=g, device=dev)
+    idx = perm.to(torch.int32)
+    groups = cc.plan_groups(n, [c.element_size() for c in cols])
+    parts = []  # (columns, dtypes, group, staged rows, outputs)
+    for gr in groups:
+        cs = [cols[i] for i in gr.columns]
+        rows = cc.pack(cs, gr.offsets, gr.row_bytes)
+        if not torch.equal(rows, cc.pack_plain(cs, gr.offsets,
+                                               gr.row_bytes)):
+            raise AssertionError(f"column_pack {gr.row_bytes} B n={n}: "
+                                 "kernel differs from its plain version")
+        dts = [c.dtype for c in cs]
+        outs = cc.gather_split(rows, idx, dts, gr.offsets)
+        for a, b in zip(outs, cc.gather_split_plain(rows, idx, dts,
+                                                    gr.offsets)):
+            if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError(f"column_gather {gr.row_bytes} B "
+                                     f"n={n}: kernel differs from its "
+                                     "plain version")
+        parts.append((cs, dts, gr, rows, outs))
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+    def ints(xs):
+        return (ctypes.c_int * len(xs))(*xs)
+
+    packs, gathers = [], []
+    for cs, dts, gr, rows, outs in parts:
+        k, widths = len(cs), ints([c.element_size() for c in cs])
+        packs.append(lambda cs=cs, gr=gr, rows=rows, k=k, widths=widths:
+                     _build.launch("srs_column_pack", dev, ptrs(cs),
+                                   (ctypes.c_longlong * k)(*[1] * k),
+                                   widths, ints(gr.offsets), k,
+                                   rows.data_ptr(), gr.row_bytes, n))
+        gathers.append(lambda gr=gr, rows=rows, outs=outs, k=k,
+                       widths=widths:
+                       _build.launch("srs_column_gather", dev,
+                                     rows.data_ptr(), gr.row_bytes,
+                                     gr.row_bytes, idx.data_ptr(), 4, n,
+                                     ptrs(outs), widths, ints(gr.offsets),
+                                     k))
+
+    def pack_all(fn):
+        return [fn(cs, gr.offsets, gr.row_bytes) for cs, _, gr, _, _ in parts]
+
+    def gather_all(fn):
+        return [fn(rows, idx, dts, gr.offsets)
+                for _, dts, gr, rows, _ in parts]
+
+    library = time_calls(lambda: [xla_sort.gather(c, perm) for c in cols],
+                         reps)
+    used = [sum(c.element_size() for c in cs) for cs, *_ in parts]
+    sizes = [gr.row_bytes for _, _, gr, _, _ in parts]
+    out = []
+    for name, kern, plain, launches, nbytes in (
+            ("column_pack", lambda: pack_all(cc.pack),
+             lambda: pack_all(cc.pack_plain), packs,
+             n * (sum(used) + sum(sizes))),
+            ("column_gather", lambda: gather_all(cc.gather_split),
+             lambda: gather_all(cc.gather_split_plain), gathers,
+             n * sum(4 + s + w for s, w in zip(sizes, used)))):
+        p1, k1 = time_calls(plain, reps), time_calls(kern, reps)
+        k2, p2 = time_calls(kern, reps), time_calls(plain, reps)
+        runs = [event_device_ms(launches) for _ in range(SPREAD_RUNS)]
+        bound = roofline.bound_ms(nbytes, chip)
+        out.append({
+            "name": name, "shape": f"lineitem's 16 columns (84 B a row) in "
+            f"groups of {sizes} B, random permutation n={n}", "n": n,
+            "ms": min(k1, k2), "ms_runs": [k1, k2],
+            "device_ms": statistics.median(runs), "device_ms_runs": runs,
+            "device_ms_from": "events", "plain_ms": min(p1, p2),
+            "plain_ms_runs": [p1, p2], "library_ms": library,
+            "library_call": "index_select of each of the 16 columns",
+            "bound_ms": bound, "bound_by": "bytes", "bytes": nbytes,
+            "device_over_bound": statistics.median(runs) / bound})
+    return out
+
+
 def host_read_timings(dev) -> dict:
     """One read of K8's word as cuda_sort.bit_window makes it (K8's two
     launches over one key, the 8-byte copy into pinned memory and the
@@ -814,6 +926,9 @@ def worker(n: int, seed: int, reps: int) -> dict:
         host_read = host_read_timings(dev)
     if importlib.util.find_spec("simd_radix_sort_tpu_torch.ops.cuda_rows"):
         table += k9_timings(n, seed, reps, dev, chip)
+    if importlib.util.find_spec(
+            "simd_radix_sort_tpu_torch.ops.cuda_columns"):
+        table += k10_timings(n, seed, reps, dev, chip)
     return {"table": table, "k1": k1, "host_read": host_read,
             "k23": k23_shape_timings(n, seed, reps, dev, _held),
             "card": subprocess.run(

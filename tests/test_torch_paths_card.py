@@ -14,14 +14,15 @@ it).  Cases, lettered as the port's records name them:
            ZeroOne, int32 [-500, 500), int16 Gaussian descending on `count`;
   (f)-(j)  the radix movers and K1 + K6, equal byte for byte to the stable
            comparison sort; (j2) `sort_packed` of u64 + u64 rows, both
-           directions, through cub's pair sort and K9;
+           directions, through cub's pair sort and K9; (j3) `sort_multi`
+           of two keys and five payloads, its output by K10's groups;
   (k)-(p)  the operators and the quick and rank engines over a TPC-H-shaped
            table, on the CPU and on the card, which must agree (integers
            exactly, float sums to 1e-12);
   (q)-(w)  the distributed tier on an NCCL group of one against a Gloo
            group of the same rank on the CPU;
   then entry() and dryrun_multichip(1) against their CPU runs, and last
-  the check that every kernel K1-K9 launched on these paths (it reads the
+  the check that every kernel K1-K10 launched on these paths (it reads the
   launches of the tests before it, so it runs after them, in file order).
 """
 
@@ -33,7 +34,8 @@ import torch.distributed as dist
 import simd_radix_sort_tpu_torch as srs
 from simd_radix_sort_tpu_torch import entry as E, methods
 from simd_radix_sort_tpu_torch import parallel as par
-from simd_radix_sort_tpu_torch.ops import (cuda_hist as ch,
+from simd_radix_sort_tpu_torch.ops import (cuda_columns as ccol,
+                                           cuda_hist as ch,
                                            cuda_partition as cp,
                                            cuda_rows as crows,
                                            cuda_scan as cs,
@@ -52,7 +54,7 @@ SMALL_N = 1_000_000  # lineitems of (k)-(w); quick's blocked path runs there
 SEED = 42
 KERNELS = ("histogram", "minmax_hist16", "tiny_sort16", "fill_runs",
            "partition_pass", "fill_runs_packed", "segmented_scan",
-           "key_bits", "row_gather")
+           "key_bits", "row_gather", "column_pack", "column_gather")
 
 
 @pytest.fixture(scope="module")
@@ -77,10 +79,12 @@ def count_launches(fn, launched, device):
     cs.reset_launches()
     csort.reset_launches()
     crows.reset_launches()
+    ccol.reset_launches()
     out = fn()
     fence(device)
     launches = {**ch.LAUNCHES, **cp.LAUNCHES, **cs.LAUNCHES,
-                "key_bits": csort.LAUNCHES["key_bits"], **crows.LAUNCHES}
+                "key_bits": csort.LAUNCHES["key_bits"], **crows.LAUNCHES,
+                **ccol.LAUNCHES}
     for name, count in launches.items():
         launched[name] += count
     return out, launches
@@ -253,6 +257,29 @@ def test_j2_sort_packed_assembles_rows_by_k9(card, u64_pair, launched, asc):
     assert torch.equal(out[:, 8:].contiguous().view(torch.int64).view(-1),
                        signed(pay))
     assert launches["row_gather"] == 1 and launches["key_bits"] == 1
+
+
+def test_j3_sort_multi_assembles_columns_by_k10(card, u64_pair, launched):
+    """ORDER BY a, b DESC of the u64 data, carrying five payloads of 8, 8,
+    4, 2 and 1 bytes: equal to each column gathered by the stable sort of
+    one composite key, and assembled by K10 (a pack and a gather a group)."""
+    k64, p64, _ = u64_pair
+    a = signed(k64) % 997
+    b = signed(p64).to(torch.int32)
+    pays = (signed(k64), signed(p64).view(torch.float64),
+            signed(p64).to(torch.float32), signed(k64).to(torch.int16),
+            (signed(p64) & 255).to(torch.uint8))
+    (got,), launches = count_launches(
+        lambda: (srs.sort_multi((a, b), *pays, ascending=(True, False)),),
+        launched, card)
+    # a in [0, 997) high, b descending as its complement low: unique order
+    composite = (a << 32) | ((1 << 31) - 1 - b.to(torch.int64))
+    perm = torch.sort(composite, stable=True).indices
+    for g, col in zip(got[0] + got[1], (a, b) + pays):
+        assert torch.equal(signed(g), signed(col).index_select(0, perm))
+    groups = ccol.plan_groups(N, [t.element_size() for t in (a, b) + pays])
+    assert launches["column_gather"] == len(groups) == 3
+    assert launches["column_pack"] == sum(g.staged for g in groups) == 3
 
 
 # ---- (k)-(p): the operators and the quick and rank engines -----------------
@@ -946,6 +973,6 @@ def test_dryrun_on_one_nccl_rank_matches_gloo(card, launched):
 
 
 def test_every_kernel_launched_on_the_main_paths(card, launched):
-    """Each of K1-K9 launched at least once by the cases above."""
+    """Each of K1-K10 launched at least once by the cases above."""
     idle = [name for name, count in launched.items() if count < 1]
     assert not idle, f"kernels never launched on the main path: {idle}"

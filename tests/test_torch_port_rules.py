@@ -91,7 +91,8 @@ def test_kernel_sources_and_build_flags():
                                             "i32", "u64", "i64")]
     assert [s.name for s in _build.SOURCES] == [
         "hist_kernels.cu", "partition_kernels.cu", "scan_kernels.cu",
-        "key_bits.cu", "row_gather.cu", "sort_pairs.cu", *pairs]
+        "key_bits.cu", "row_gather.cu", "column_gather.cu", "sort_pairs.cu",
+        *pairs]
     assert [h.name for h in _build.HEADERS] == ["sort_pairs.cuh"]
     assert all(src.is_file() for src in _build.SOURCES + _build.HEADERS)
     text = "".join(src.read_text() for src in _build.SOURCES)

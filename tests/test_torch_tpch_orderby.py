@@ -240,12 +240,17 @@ def test_a_right_answer_beside_a_wrong_one():
 
 
 @pytest.mark.parametrize("n,widths,want", [
-    (10, [8], 10 * (8 + 16)),
-    (1000, [4, 8, 1], 1000 * (24 + 26)),
+    # the index narrowed (12n), the column gathered straight (4n + 2 x 8n)
+    (10, [8], 10 * (12 + 20)),
+    # narrowed, one group packed (13n + 16n) and gathered (4n + 16n + 13n)
+    (1000, [4, 8, 1], 1000 * (12 + 29 + 33)),
     (0, [8, 8], 0),
-    # the cell: 16 lineitem columns of 84 bytes, 296n, 53.3 GB a call
+    # past cub's MAX_ITEMS the int64 index is read as it is: one group
+    # packed (12n + 16n) and gathered (8n + 16n + 12n)
+    (2**31, [8, 4], 2**31 * 64),
+    # the cell: 16 lineitem columns of 84 bytes in 4 groups, 364n, 65.5 GB
     (179_998_372, [8, 8, 8, 4, 8, 8, 8, 8, 1, 1, 4, 4, 4, 1, 1, 8],
-     53_279_518_112),
+     65_519_407_408),
 ])
 def test_gather_bytes_by_hand(n, widths, want):
     assert sort_ops.multi_gather_bytes(n, widths) == want
@@ -274,7 +279,7 @@ def test_cell_runs_on_the_cpu(traced):
     if traced:
         # no device events on the CPU: the counter alone has a reading
         got = res["metrics"]["operators.orderby_gb"]["value"]
-        assert got == pytest.approx(296 * n / 1e9)
+        assert got == pytest.approx(364 * n / 1e9)
     else:
         assert set(res["metrics"]) >= {"rows_per_s", "p95_ms", "setup_s"}
 

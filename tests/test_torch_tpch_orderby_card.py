@@ -87,5 +87,7 @@ def test_spans_and_counter_in_a_profiled_call(state):
     assert passes[-1][1] <= gather[0]
     for name in ("srs.sort_multi.keys", "srs.sort_multi.gather"):
         assert program_spans.busy_s(tr, name) > 0, name
-    assert profiling.COUNTERS["sort_multi.gather_bytes"] == 296 * N
+    assert profiling.COUNTERS["sort_multi.gather_bytes"] == 364 * N
+    assert profiling.COUNTERS["column_gather.groups"] == 4
+    assert profiling.COUNTERS["column_gather.staged_bytes"] == 84 * N
     profiling.reset_counters()

@@ -14,7 +14,8 @@ import simd_radix_sort_tpu_torch as tsrs
 from benchmark import calls, harness
 from benchmark.trace import CALL, WINDOW, Event, Trace
 from simd_radix_sort_tpu_torch import methods
-from simd_radix_sort_tpu_torch.ops import (cuda_partition, cuda_sort, hashagg,
+from simd_radix_sort_tpu_torch.ops import (cuda_columns, cuda_partition,
+                                           cuda_sort, hashagg,
                                            hashjoin)
 from simd_radix_sort_tpu_torch.ops import filter as filt
 from simd_radix_sort_tpu_torch.ops import sort as sort_ops
@@ -268,12 +269,13 @@ def test_sort_multi_spans_wrap_the_key_passes_then_the_gathers(nkeys):
     # one pass a key column, one after another, then the gathers
     for (_, e), (s, _) in zip(passes, passes[1:] + [gather]):
         assert e <= s
-    # one gather an output column, all inside the gather span; the sorts
-    # inside the passes
+    # one gather a group of output columns, all inside the gather span; the
+    # sorts inside the passes
     picks = [e.time_range for e in prof.events()
              if e.name == "aten::index_select"
              and gather[0] <= e.time_range.start <= gather[1]]
-    assert len(picks) == nkeys + len(pays)
+    widths = [t.element_size() for t in keys[:nkeys] + pays]
+    assert len(picks) == len(cuda_columns.plan_groups(3000, widths))
     sorts = [e.time_range for e in prof.events() if e.name == "aten::sort"]
     assert sorts and all(any(s <= r.start and r.end <= e for s, e in passes)
                          for r in sorts)
@@ -286,10 +288,19 @@ def test_sort_multi_gather_bytes_counted_once_a_call(n, nkeys):
     with profile(activities=[ProfilerActivity.CPU]):
         for up in (True, False):
             tsrs.sort_multi(keys[:nkeys], *pays, ascending=up, device="cpu")
-    # index 8n and the column read and written, a column: n (8c + 2 sum w)
-    want = n * (8 * len(widths) + 2 * sum(widths))
+    # the index narrowed, then each group packed and gathered
+    groups = cuda_columns.plan_groups(n, widths)
+    want = 12 * n + sum(
+        n * (2 * used + 2 * g.row_bytes + 4) if g.staged else
+        n * (2 * used + 4)
+        for g, used in ((g, sum(widths[i] for i in g.columns))
+                        for g in groups))
     assert sort_ops.multi_gather_bytes(n, widths) == want
-    assert profiling.COUNTERS == {"sort_multi.gather_bytes": 2 * want}
+    staged = sum(n * g.row_bytes for g in groups if g.staged)
+    assert profiling.COUNTERS == {
+        "sort_multi.gather_bytes": 2 * want,
+        "column_gather.groups": 2 * len(groups),
+        "column_gather.staged_bytes": 2 * staged}
     profiling.reset_counters()
     tsrs.sort_multi(keys[:nkeys], *pays, device="cpu")  # no profiler
     assert not profiling.COUNTERS
@@ -324,7 +335,7 @@ def orderby_run(spans=True):
 def test_orderby_readers_by_hand(monkeypatch):
     n = 10**4
     monkeypatch.setattr(profiling, "COUNTERS", collections.Counter({
-        "sort_multi.gather_bytes": 2 * 296 * n, "xla.pairs_calls": 1}))
+        "sort_multi.gather_bytes": 2 * 364 * n, "xla.pairs_calls": 1}))
     run = orderby_run()
     # busy from the passes: [3,15] + [53,60] = 19 us over 2 calls
     assert metric("operators.orderby_keys_ms")(run) == pytest.approx(0.0095)
@@ -332,7 +343,7 @@ def test_orderby_readers_by_hand(monkeypatch):
     assert metric("operators.orderby_gather_ms")(run) == pytest.approx(
         0.0115)
     assert metric("operators.orderby_gb")(run) == pytest.approx(
-        296 * n / 1e9)
+        364 * n / 1e9)
     # two calls' 2 * n * 84 bytes at 3.35 TB/s over [3,30] + [53,69]
     assert metric("orderby_roofline")(run) == pytest.approx(
         100 * 2 * 2 * n * 84 / 3.35e12 / 43e-6)
