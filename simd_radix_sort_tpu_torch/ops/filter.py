@@ -3,9 +3,10 @@
 Counterpart of simd_radix_sort_tpu/ops/filter.py.  The reference builds this
 on its masked compress-store; the JAX package stands in for that with one
 stable sort on the inverted mask.  The port has the compress-store itself:
-every compaction here is one K5 launch (ops/cuda_partition.partition_pass,
+every compaction here is one K5 pass (ops/cuda_partition.partition_pass,
 csrc/partition_kernels.cu), a stable two-way partition that moves every
-stream in lock-step.  K5 puts mask=False rows first, so it is given `~mask`.
+stream in lock-step: K5's count launch, then one scatter launch for every
+8 streams.  K5 puts mask=False rows first, so it is given `~mask`.
 
 Results keep the padded static-shape form of the JAX package: full-length
 streams with the selected rows packed stably at the front, plus a count.
@@ -55,6 +56,13 @@ def _resize(s: torch.Tensor, length: int) -> torch.Tensor:
     return torch.cat([common.as_signed(s), z]).view(s.dtype)
 
 
+def _check_mask(mask: torch.Tensor) -> None:
+    if mask.ndim != 1:
+        raise ValueError("mask must be 1-D")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"mask must be boolean, got {mask.dtype}")
+
+
 def compact(mask: torch.Tensor, *streams, fill=None):
     """Stably pack rows where mask is True to the front of every stream.
 
@@ -63,21 +71,16 @@ def compact(mask: torch.Tensor, *streams, fill=None):
     which case they are overwritten with that scalar.  The fill's mask of
     the first `count` rows is counted in `compaction.fill_bytes` while a
     profiler records: 8n bytes written by the int64 row numbers, 8n read
-    and n written by the compare."""
-    if mask.ndim != 1:
-        raise ValueError("mask must be 1-D")
-    if mask.dtype != torch.bool:
-        raise TypeError(f"mask must be boolean, got {mask.dtype}")
-    with profiling.span("srs.compact"):
-        n = mask.shape[0]
-        packed = partition_streams(~mask, streams)
-        count = mask.sum(dtype=torch.int32)
-        if fill is not None:
-            with profiling.span("srs.fill"):
-                profiling.count("compaction.fill_bytes", 17 * n)
-                sel = torch.arange(n, device=mask.device) < count
-                packed = tuple(_fill(s, sel, fill) for s in packed)
-    return (count,) + packed
+    and n written by the compare.
+
+    While a profiler records, the bytes the caller needs are counted in the
+    device counter `compact.needed_bytes`: the mask read once (n bytes,
+    on the host) and each kept row read once and written once in every
+    stream at that stream's own width, 2 * count * sum(w), from `count`
+    on the card (capped at `max_out` in `compact_bounded`).  It is
+    `benchmark/work/filter_rows.py`'s rule, for every compaction."""
+    _check_mask(mask)
+    return _compact(mask, streams, fill, None)
 
 
 def compact_bounded(mask: torch.Tensor, *streams, max_out: int,
@@ -95,11 +98,33 @@ def compact_bounded(mask: torch.Tensor, *streams, max_out: int,
     The JAX package sorts `block`-row blocks apart because a block fits the
     TPU's VMEM.  Here one K5 pass is already a single read and write of
     every stream, so this is `compact(..., fill=0)` cut or padded to
-    `max_out`; `block` is accepted for the JAX signature and ignored."""
-    if mask.ndim != 1:
-        raise ValueError("mask must be 1-D")
-    out = compact(mask, *streams, fill=0)
-    return (out[0],) + tuple(_resize(s, max_out) for s in out[1:])
+    `max_out`, inside the same `srs.compact` span; `block` is accepted for
+    the JAX signature and ignored."""
+    _check_mask(mask)
+    return _compact(mask, streams, 0, max_out)
+
+
+def _compact(mask, streams, fill, max_out):
+    """The body of `compact` and `compact_bounded`: all of a compaction's
+    work inside one `srs.compact` span, the cut and pad to `max_out` (when
+    not None) included."""
+    with profiling.span("srs.compact"):
+        n = mask.shape[0]
+        packed = partition_streams(~mask, streams)
+        count = mask.sum(dtype=torch.int32)
+        if profiling.recording():
+            profiling.count_on_device("compact.needed_bytes", n)
+            profiling.count_on_device(
+                "compact.needed_bytes", count,
+                2 * sum(s.element_size() for s in streams), cap=max_out)
+        if fill is not None:
+            with profiling.span("srs.fill"):
+                profiling.count("compaction.fill_bytes", 17 * n)
+                sel = torch.arange(n, device=mask.device) < count
+                packed = tuple(_fill(s, sel, fill) for s in packed)
+        if max_out is not None:
+            packed = tuple(_resize(s, max_out) for s in packed)
+    return (count,) + packed
 
 
 def filter_rows(predicate, keys: torch.Tensor, *payloads):

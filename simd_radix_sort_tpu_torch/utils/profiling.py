@@ -13,8 +13,11 @@ torch profiler is recording (`trace` here, or any `torch.profiler.profile`
 of the caller's).  A span is then a record function of the profiler, an op
 of its host timeline on the clock of the device's events; otherwise it is
 a shared null context and a counter is left alone, so that tracing off
-costs one check of the profiler's state.  Every name is listed in SPANS or
-COUNTER_NAMES.
+costs one check of the profiler's state.  `count_on_device(name, value)`
+adds a value the card holds to a device counter: it keeps the 0-d tensor,
+launching nothing and reading nothing, and `device_counted(name)` sums the
+kept values after the traced stretch.  Every name is listed in SPANS,
+COUNTER_NAMES or DEVICE_COUNTER_NAMES.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ SPANS = (
     "srs.xla.gather",              # its payload gathers
     "srs.xla.pairs",               # its one-payload calls: cub's pair sort
     "srs.xla.bits",                # their K8 launches and the window's read
-    "srs.compact",                 # ops/filter.compact, whole
+    "srs.compact",                 # filter.compact, compact_bounded, whole
     "srs.k5",                      # cuda_partition.partition_pass
     "srs.widen",                   # cuda_partition.to_words, from_words
     "srs.fill",                    # compact(fill=...): the mask and _fill
@@ -104,6 +107,15 @@ COUNTER_NAMES = (
     "sort_multi.gather_bytes",     # ops/sort.multi_gather_bytes, a call
 )
 COUNTERS: collections.Counter = collections.Counter()
+# The port's device counters (`count_on_device`, `device_counted`): sums
+# of values the card holds, kept apart from COUNTERS so that no reader of
+# COUNTERS meets a tensor.  compact.*: bytes a compaction's caller needs,
+# by the rule in the docstring of filter.compact.
+DEVICE_COUNTER_NAMES = (
+    "compact.needed_bytes",        # filter.compact: the mask, kept rows
+)
+_DEVICE_HOST: collections.Counter = collections.Counter()  # int parts
+_DEVICE_KEPT = collections.defaultdict(list)  # (tensor, version, w, cap)
 
 recording = torch.autograd._profiler_enabled  # a profiler is recording
 _OFF = contextlib.nullcontext()
@@ -129,8 +141,64 @@ def count(name: str, k: int = 1) -> None:
         COUNTERS[name] += k
 
 
+def count_on_device(name: str, value, weight: int = 1,
+                    cap: int | None = None) -> None:
+    """Add weight * min(value, cap) (no cap: weight * value) to the device
+    counter `name` while a profiler records.  `value` is a Python int,
+    added at once, or a 0-d integer tensor on any device, kept by
+    reference until `device_counted` reads it: no launch and no read of
+    the card now.
+
+    Nothing may write into a kept tensor.  A copy the caller could not
+    see would cost a launch inside the caller's span, so the tensor
+    itself is kept, with torch's count of the in-place writes into it
+    (`_version`): `device_counted` refuses one written after it was kept.
+    An inference tensor has no such count and is kept unguarded.
+    `filter.compact` hands in the count it returns, which no caller in
+    the package writes into."""
+    if not recording():
+        return
+    if isinstance(value, torch.Tensor):
+        if value.ndim or value.dtype.is_floating_point or \
+                value.dtype == torch.bool:
+            raise TypeError(f"device counter {name}: expected a 0-d "
+                            f"integer tensor, got {value.dtype} "
+                            f"{tuple(value.shape)}")
+        version = None if value.is_inference() else value._version
+        _DEVICE_KEPT[name].append((value, version, weight, cap))
+    else:
+        _DEVICE_HOST[name] += weight * (value if cap is None
+                                        else min(value, cap))
+
+
+def device_counted(name: str):
+    """The device counter `name` as one Python int: its int parts plus
+    sum(weight * min(value, cap)) over its kept tensors, with one copy to
+    the host for each device and dtype they are on.  The copy waits for
+    the card, so call it after the traced stretch.  Reading leaves the
+    counter as it was.  None where nothing was counted under `name`."""
+    kept = _DEVICE_KEPT.get(name, ())
+    if name not in _DEVICE_HOST and not kept:
+        return None
+    groups = collections.defaultdict(list)
+    for t, version, weight, cap in kept:
+        if version is not None and t._version != version:
+            raise RuntimeError(f"device counter {name}: a value was "
+                               f"written into after it was kept")
+        groups[t.device, t.dtype].append((t, weight, cap))
+    total = _DEVICE_HOST[name]
+    for entries in groups.values():
+        values = torch.stack([t for t, _, _ in entries]).cpu().tolist()
+        total += sum(w * (v if cap is None else min(v, cap))
+                     for v, (_, w, cap) in zip(values, entries))
+    return total
+
+
 def reset_counters() -> None:
+    """Clear COUNTERS and the device counters."""
     COUNTERS.clear()
+    _DEVICE_HOST.clear()
+    _DEVICE_KEPT.clear()
 
 
 def elapsed_seconds(device: torch.device, loop) -> float:

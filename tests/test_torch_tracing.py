@@ -67,7 +67,7 @@ def packed_rows(n: int, esize: int, seed: int = 3) -> torch.Tensor:
 def calls_of_every_layer():
     """A sort through count (each branch), two through xla (one payload:
     the pair sort; two: torch.sort and the gathers), a combined-layout sort
-    of 64-byte rows, a filter, a
+    of 64-byte rows, a filter, a bounded compaction padded past its rows, a
     group-aggregate with a float sum and one with two, a lookup join of one
     payload and one of two, a semi-join and a multi-column sort, on the
     CPU."""
@@ -83,6 +83,8 @@ def calls_of_every_layer():
     tsrs.sort(keys, torch.arange(4096), keys % 3, method="xla", device="cpu")
     tsrs.sort_packed(packed_rows(4096, 64), np.uint64, device="cpu")
     filt.filter_rows(lambda k: k % 3 == 0, keys, torch.arange(4096) % 7)
+    filt.compact_bounded(keys[:100] % 2 == 0, keys[:100],
+                         torch.arange(100, dtype=torch.int16), max_out=128)
     hashagg.group_aggregate(keys % 5, torch.rand(4096, generator=g,
                                                  dtype=torch.float64),
                             aggs=("sum", "count"), max_groups=5)
@@ -123,18 +125,28 @@ def test_off_constructs_no_span_and_counts_nothing(monkeypatch):
     launches = dict(cuda_partition.LAUNCHES)
     calls_of_every_layer()
     assert not profiling.COUNTERS
+    for name in profiling.DEVICE_COUNTER_NAMES:
+        assert profiling.device_counted(name) is None
     assert cuda_partition.LAUNCHES == launches
 
 
 def test_on_emits_listed_spans_each_inside_its_parent(monkeypatch):
     # every pair sort reads its bit window, however few its rows
     monkeypatch.setattr(cuda_sort, "HOST_READ_S", 0.0)
+    resize = filt._resize
+
+    def marked_resize(s, length):
+        with torch.profiler.record_function("test.resize"):
+            return resize(s, length)
+
+    monkeypatch.setattr(filt, "_resize", marked_resize)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         calls_of_every_layer()
     spans = collections.defaultdict(list)
     for e in prof.events():
-        if e.name.startswith("srs."):
+        if e.name.startswith(("srs.", "test.")):
             spans[e.name].append((e.time_range.start, e.time_range.end))
+    cuts = spans.pop("test.resize")
     assert set(spans) <= set(profiling.SPANS)
     assert set(spans) == set(PARENTS)
     for name, ivs in spans.items():
@@ -144,6 +156,13 @@ def test_on_emits_listed_spans_each_inside_its_parent(monkeypatch):
         for s, e in ivs:
             assert any(ps <= s and e <= pe for p in parents
                        for ps, pe in spans[p]), (name, s, e)
+    # compact_bounded's cut and pad (two aggregates and the padded call:
+    # 3 + 3 + 2 streams) lie inside `srs.compact`, which never nests
+    assert len(cuts) == 8
+    compacts = sorted(spans["srs.compact"])
+    for s, e in cuts:
+        assert any(ps <= s and e <= pe for ps, pe in compacts), (s, e)
+    assert all(e <= s for (_, e), (s, _) in zip(compacts, compacts[1:]))
 
 
 @pytest.mark.parametrize("dtype,hi,syncs", [
@@ -192,6 +211,120 @@ def test_compaction_bytes_by_hand():
     assert c["compaction.fill_bytes"] == 17 * n + 17 * n + 3 * n
     assert c["host_syncs.filter.fill"] == 2
     assert c.total() == 26 * n + 18 * n + 37 * n + 2
+
+
+class Untouchable:
+    """A value that fails a test when anything reads it."""
+
+    def __getattribute__(self, name):
+        raise AssertionError(f"the device counter touched .{name}")
+
+
+def test_device_counter_holds_nothing_and_touches_nothing_when_off():
+    assert not profiling.recording()
+    profiling.count_on_device("compact.needed_bytes", Untouchable(), 3,
+                              cap=Untouchable())
+    profiling.count_on_device("compact.needed_bytes", 10**6)
+    assert profiling.device_counted("compact.needed_bytes") is None
+
+
+@pytest.mark.parametrize("entries", [
+    [(5, 1, None)],
+    [(torch.tensor(7, dtype=torch.int32), 18, None), (1000, 1, None)],
+    [(torch.tensor(334, dtype=torch.int32), 18, 5),
+     (torch.tensor(3), 18, 5), (torch.tensor(0, dtype=torch.int16), 9, 1),
+     (40, 2, 7), (3, 2, 7)],
+    [(torch.tensor(2**31 - 1, dtype=torch.int32), 70, None),
+     (torch.tensor(6 * 10**8), 32, None)]])
+def test_device_counter_adds_up_by_hand(entries):
+    with profile(activities=[ProfilerActivity.CPU]):
+        for value, weight, cap in entries:
+            profiling.count_on_device("compact.needed_bytes", value, weight,
+                                      cap=cap)
+    want = sum(w * (int(v) if cap is None else min(int(v), cap))
+               for v, w, cap in entries)
+    assert profiling.device_counted("compact.needed_bytes") == want
+    # reading leaves it as it was; the counters of COUNTERS never see it
+    assert profiling.device_counted("compact.needed_bytes") == want
+    assert not profiling.COUNTERS
+    profiling.reset_counters()
+    assert profiling.device_counted("compact.needed_bytes") is None
+
+
+def test_device_counter_refuses_a_value_written_after_it_was_kept():
+    count = torch.tensor(7, dtype=torch.int32)
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count_on_device("compact.needed_bytes", count, 2)
+    count.add_(1)
+    with pytest.raises(RuntimeError, match="written"):
+        profiling.device_counted("compact.needed_bytes")
+    profiling.reset_counters()
+    with torch.inference_mode():  # no count of writes: kept unguarded
+        inferred = torch.tensor(5, dtype=torch.int32)
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count_on_device("compact.needed_bytes", inferred, 3)
+    assert profiling.device_counted("compact.needed_bytes") == 15
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(TypeError):
+            profiling.count_on_device("compact.needed_bytes",
+                                      torch.ones(2, dtype=torch.int32))
+        with pytest.raises(TypeError):
+            profiling.count_on_device("compact.needed_bytes",
+                                      torch.tensor(1.0))
+
+
+def _mixed_streams(n):
+    # test_compaction_bytes_by_hand's streams: int64 and int8, 9 bytes a row
+    return torch.arange(n), torch.arange(n, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("call,kept", [
+    (lambda m, *s: filt.compact(m, *s), 334),
+    (lambda m, *s: filt.compact(m, *s, fill=0), 334),
+    (lambda m, *s: filt.compact_bounded(m, *s, max_out=100), 100),
+    (lambda m, *s: filt.compact_bounded(m, *s, max_out=2000), 334)])
+def test_compact_needed_bytes_by_hand(call, kept):
+    n = 1000
+    mask = torch.arange(n) % 3 == 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        cnt, a, b = call(mask, *_mixed_streams(n))
+    assert int(cnt) == 334 and int(a[kept - 1]) == 3 * (kept - 1)
+    # the mask once; each kept row read and written at 8 + 1 bytes
+    assert profiling.device_counted("compact.needed_bytes") == \
+        n + 2 * kept * 9
+
+
+def test_needed_bytes_leave_the_compaction_counters_as_they_were():
+    n = 1000
+    mask = torch.arange(n) % 3 == 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        filt.compact(mask, *_mixed_streams(n), fill=0)
+    # test_compaction_bytes_by_hand's totals, value for value
+    c = profiling.COUNTERS
+    assert c["compaction.k5_bytes"] == 26 * n
+    assert c["compaction.widen_bytes"] == 18 * n
+    assert c["compaction.fill_bytes"] == 37 * n
+    assert c["host_syncs.filter.fill"] == 2
+    assert c.total() == 26 * n + 18 * n + 37 * n + 2
+    assert set(c) <= set(profiling.COUNTER_NAMES)
+    assert profiling.device_counted("compact.needed_bytes") == n + 18 * 334
+
+
+@pytest.mark.parametrize("n,every,dtypes", [
+    (1000, 3, (torch.int64, torch.int8)),
+    (4099, 50, (torch.int8, torch.int8, torch.float64, torch.float64,
+                torch.float64, torch.float64)),
+    (777, 1, (torch.int64, torch.int32, torch.float64, torch.int16)),
+    (500, 1000, (torch.float64, torch.float64))])
+def test_filter_rows_needed_bytes_are_the_benchmarks_rule(n, every, dtypes):
+    mask = torch.arange(n) % every == 0
+    streams = [torch.arange(n).to(d) for d in dtypes]
+    with profile(activities=[ProfilerActivity.CPU]):
+        cnt, *_ = filt.filter_rows(mask, *streams)
+    work = harness.load_file_module("work", "filter_rows")
+    assert profiling.device_counted("compact.needed_bytes") == \
+        work.bytes_needed({"n": n, "selected": int(cnt),
+                           "stream_bytes": [d.itemsize for d in dtypes]})
 
 
 def _span_times(prof, prefix="srs."):
@@ -437,7 +570,9 @@ def test_span_readers_read_nothing_where_there_is_nothing():
              "operators.semi_join_ms", "operators.orderby_us",
              "kernels.packed_ms", "kernels.packed_gb", "packed_roofline",
              "operators.orderby_keys_ms", "operators.orderby_gather_ms",
-             "operators.orderby_gb", "orderby_roofline")
+             "operators.orderby_gb", "orderby_roofline",
+             "operators.compact_useful", "operators.compact_ms",
+             "operators.compact_idle_us")
     # no trace; a trace without the program's spans (a program that has
     # none); one without a call of the metric's kind
     bare = Trace([Event(WINDOW, "op", 0, 10), *launch(1, 2, 3, 1)], set())
@@ -506,3 +641,64 @@ def test_counter_readers_by_hand(monkeypatch):
     assert metric("operators.host_syncs")(run) is None
     assert metric("engine.host_syncs")(
         harness.Run("w", sorts, 1.0, 0.0, 0, trace=tr)) is None
+
+
+def compact_run():
+    """Two traced queries (one untraced) of a 100 us window: `srs.compact`
+    at [2,10], inside the aggregate's `srs.hashagg.compact` at [21,29],
+    and at [55,70]; launches from inside them at 3, 22 and 56, one from
+    outside at 40."""
+    q = [record("query"), record("query"), record("query", traced=False)]
+    ev = [Event(WINDOW, "op", 0, 100), Event("query", "op", 0, 45),
+          Event("srs.compact", "op", 2, 10),
+          Event("srs.hashagg.compact", "op", 20, 30),
+          Event("srs.compact", "op", 21, 29),
+          Event("query", "op", 50, 95), Event("srs.compact", "op", 55, 70)]
+    ev += (launch(3, 4, 12, 1) + launch(22, 22, 26, 2)
+           + launch(40, 40, 50, 3) + launch(56, 60, 65, 4))
+    return harness.Run("w", q, 1.0, 0.0, 0, trace=Trace(ev, {"query"}))
+
+
+def test_compact_readers_by_hand(monkeypatch):
+    monkeypatch.setattr(profiling, "COUNTERS", collections.Counter({
+        "compaction.k5_bytes": 4 * 10**9, "compaction.widen_bytes": 10**9,
+        "compaction.fill_bytes": 2 * 10**9, "host_syncs.filter.fill": 3}))
+    with profile(activities=[ProfilerActivity.CPU]):
+        profiling.count_on_device("compact.needed_bytes", 7 * 10**8)
+        profiling.count_on_device("compact.needed_bytes",
+                                  torch.tensor(10**7), 70)
+    run = compact_run()
+    # 1.4 GB needed of the 7 GB the compactions move
+    assert metric("operators.compact_useful")(run) == pytest.approx(20.0)
+    # busy [4,12] + [22,26] + [60,65] = 17 us over 2 queries; the
+    # aggregate's own compaction [22,26] alone
+    assert metric("operators.compact_ms")(run) == pytest.approx(0.0085)
+    assert metric("operators.agg_compact_ms")(run) == pytest.approx(0.002)
+    # idle [2,4]; [21,22] and [26,29]; [55,60] and [65,70]: 16 us
+    assert metric("operators.compact_idle_us")(run) == pytest.approx(8.0)
+
+
+def test_compact_readers_silent_where_there_is_nothing(monkeypatch):
+    names = ("operators.compact_useful", "operators.compact_ms",
+             "operators.compact_idle_us")
+    with profile(activities=[ProfilerActivity.CPU]):
+        filt.compact(torch.arange(10) % 2 == 0, torch.arange(10))
+    run = compact_run()
+    # untraced: nothing
+    untraced = harness.Run("w", run.records, 1.0, 0.0, 0)
+    for name in names:
+        assert metric(name)(untraced) is None, name
+    # a trace without `srs.compact`: no busy or idle time to read
+    bare = Trace([Event(WINDOW, "op", 0, 10), *launch(1, 2, 3, 1)], set())
+    for name in names[1:]:
+        assert metric(name)(harness.Run("w", run.records, 1.0, 0.0, 0,
+                                        trace=bare)) is None, name
+    # nothing counted: no share
+    profiling.reset_counters()
+    assert metric("operators.compact_useful")(run) is None
+    # a program without the device counter, whose `srs.compact` leaves
+    # compact_bounded's cut and pad out: nothing, though its spans are there
+    monkeypatch.delattr(profiling, "device_counted")
+    monkeypatch.delattr(profiling, "DEVICE_COUNTER_NAMES")
+    for name in names:
+        assert metric(name)(run) is None, name
